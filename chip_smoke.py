@@ -27,7 +27,8 @@ which makes the script exit non-zero when it fails:
                result equal to the oracle's;
   5. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
                entries) with ``SCALE_KEYS`` loaded keys and as many r50
-               ops, checked against the oracle.
+               ops, checked against the oracle; then a window of rounds
+               under the per-phase timer and a profiler window.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -35,7 +36,6 @@ The script imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import pathlib
 import statistics
@@ -46,8 +46,9 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# fig3a r50 with the block probe, as recorded from the JAX reference
-# (repro, jax 0.9.0 on the CPU) with the same config, seeds and driver
+# fig3a r50 with the block probe, as the JAX reference gives it with the
+# same config, seeds and driver; tests/test_torch_fig3a.py recomputes these
+# from the reference and from the port on the CPU
 FIG3A_EXPECTED = dict(rounds=107, load_rounds=34, settle_rounds=44,
                       fast_hits=1865, mut_hits=3228, blk_hits=4235,
                       sublists=29, keys=2218)
@@ -437,7 +438,10 @@ def phase_client() -> None:
         f"stats {json.dumps(client.stats)}")
 
 
-def phase_scale(n_keys: int) -> dict:
+def phase_scale(n_keys: int, timed_rounds: int = 64) -> dict:
+    """Load, settle and an untimed r50 mix (ops/s) checked against the
+    oracle; then ``timed_rounds`` more rounds of the same mix under the
+    phase timer (the breakdown) and a profiler window."""
     import torch
     from repro_torch.api import LocalBackend
     from repro_torch.core.balancer import Balancer
@@ -451,8 +455,7 @@ def phase_scale(n_keys: int) -> dict:
                     max_ctrs=16384)
     load_kinds, load_keys = load_phase(n_keys, key_space, seed=1)
     kinds, keys = mixed_phase(n_keys, key_space, 0.5, seed=2)
-    timer = PhaseTimer("cuda")
-    backend = LocalBackend(cfg, device="cuda", timer=timer)
+    backend = LocalBackend(cfg, device="cuda")
     bal = Balancer(backend)
     K.hybrid_search.launches = 0
     t0 = time.perf_counter()
@@ -461,7 +464,6 @@ def phase_scale(n_keys: int) -> dict:
     load_rounds = backend.stats["rounds"]
     settle(backend, bal)
     settle_rounds = backend.stats["rounds"]
-    timer.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     drive_backend(backend, kinds, keys, 64, balancer=bal)
@@ -475,21 +477,36 @@ def phase_scale(n_keys: int) -> dict:
     got = backend.all_keys()
     check(got == sorted(oracle.snapshot()),
           "scale: final key set differs from the sequential oracle")
-    st = backend.stats
+    st = dict(backend.stats)
     mix_rounds = st["rounds"] - settle_rounds
     sub = sum(1 for e in backend.sublists(0) if e["owner"] == 0)
     check(launches > 0 and st["blk_hits"] > 0,
           f"scale: hybrid_search launched {launches} times, blk_hits "
           f"{st['blk_hits']}")
-    bd = breakdown(timer, mix_rounds)
     log(f"[scale] {n_keys} keys loaded into 2**21-node pool, "
         f"{sub} sublists: load {n_keys / t_load:.1f} ops/s "
         f"({load_rounds} rounds, {t_load:.1f} s), settle "
         f"{settle_rounds - load_rounds} rounds, r50 mix "
-        f"{len(kinds) / dt:.1f} ops/s ({mix_rounds} rounds, {dt:.1f} s); "
-        f"fast_hits {st['fast_hits']} mut_hits {st['mut_hits']} "
-        f"blk_hits {st['blk_hits']}; launches {launches}; per-round ms "
-        f"over the mix (phase timer on): {json.dumps(bd)}")
+        f"{len(kinds) / dt:.1f} ops/s ({mix_rounds} rounds, {dt:.1f} s, "
+        f"{1e3 * dt / mix_rounds:.3f} ms/round); fast_hits "
+        f"{st['fast_hits']} mut_hits {st['mut_hits']} blk_hits "
+        f"{st['blk_hits']}; launches {launches}")
+
+    # the breakdown, from a window after the measured mix
+    timer = PhaseTimer("cuda")
+    backend.cluster.timer = timer
+    r0 = backend.stats["rounds"]
+    n = 64 * timed_rounds
+    t0 = time.perf_counter()
+    drive_backend(backend, kinds[:n], keys[:n], 64, balancer=bal)
+    torch.cuda.synchronize()
+    dt_t = time.perf_counter() - t0
+    backend.cluster.timer = None
+    rounds_t = backend.stats["rounds"] - r0
+    bd = breakdown(timer, rounds_t)
+    log(f"[scale] with the phase timer, {rounds_t} more r50 rounds: "
+        f"{n / dt_t:.1f} ops/s, round {1e3 * dt_t / rounds_t:.3f} ms; "
+        f"per-round ms: {json.dumps(bd)}")
     profile_rounds(backend, kinds, keys)
     return dict(ops_per_s=len(kinds) / dt, launches=launches)
 
@@ -497,12 +514,6 @@ def phase_scale(n_keys: int) -> dict:
 # ------------------------------------------------------------------- main
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scale-keys", type=int, default=SCALE_KEYS,
-                    help="keys loaded (and mix ops) in the scale phase; "
-                         "0 leaves the phase out")
-    args = ap.parse_args()
-
     import torch
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device: the port's smoke runs on a GPU")
@@ -515,7 +526,7 @@ def main() -> None:
     krec = phase_kernels()
     f3 = phase_fig3a()
     phase_client()
-    scale = phase_scale(args.scale_keys) if args.scale_keys > 0 else None
+    scale = phase_scale(SCALE_KEYS)
 
     k = krec["fig3a"]
     kernels = [dict(
@@ -527,7 +538,7 @@ def main() -> None:
         bound_by=k["bound_by"], library_ms=None,
         shape=k["shape"], call_ms=k["call_ms"],
         ms_scale_path=krec["scale_path"]["ms"],
-        launches_scale=None if scale is None else scale["launches"])]
+        launches_scale=scale["launches"])]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()

@@ -76,7 +76,8 @@ def route(h, key: int, sh_hint: int, me: int):
     owner = refs.ref_sid(sh_ref)
     head_idx = refs.ref_idx(sh_ref)
     safe_head = min(max(head_idx, 0), h.n - 1)
-    head_moved = owner == me and int(h.stct[h.ctr[safe_head]]) < 0
+    head_ctr = min(max(int(h.ctr[safe_head]), 0), h.n_ctrs - 1)
+    head_moved = owner == me and int(h.stct[head_ctr]) < 0
     head_newloc = refs.unmarked(int(h.newloc[safe_head]))
     return sh_ref, owner, head_idx, head_moved, head_newloc, no_route
 
