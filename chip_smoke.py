@@ -8,12 +8,17 @@ Run from the root of a checkout, with no arguments::
 It needs a CUDA card and the CUDA toolkit (``nvcc``). Phases, each of
 which makes the script exit non-zero when it fails:
 
-  1. build   — compile every kernel of the main path from the checkout's
-               sources (``nvcc`` for ``sm_90a``; into ``build/kernels/``);
-  2. kernels — each kernel against its plain PyTorch version on the card,
-               bit for bit (tolerance 0: the outputs are integers), at the
-               main path's shapes and on the edge cases of the tests; its
-               device time (``torch.profiler``) beside its bound;
+  1. build   — compile every kernel from the checkout's sources, one
+               ``nvcc`` per source, all at once (``sm_90a``; into
+               ``build/kernels/``);
+  2. kernels — each kernel against its plain PyTorch version on the card:
+               ``hybrid_search`` bit for bit at the fig3a and scale shapes
+               and on the edge cases of the tests; ``paged_attention`` at
+               the reference's three test shapes in f32 and bf16 (atol
+               2e-5 / 2e-2, rtol 2e-2) and the serving shape, plus the
+               padding-page invariance. Device times (``torch.profiler``)
+               beside the bound and, for ``paged_attention``, beside the
+               nearest library call (gather + SDPA, timed only);
   3. fig3a   — the paper's single-machine configuration (Fig. 3a) as
                ``benchmarks/run.py`` runs it, YCSB r50 mix: 1 shard,
                Balancer, block probe on. The final key set must equal the
@@ -25,7 +30,15 @@ which makes the script exit non-zero when it fails:
                the per-phase timer (the round's breakdown);
   4. client  — a few hundred ops through ``DiLiClient`` futures, each
                result equal to the oracle's;
-  5. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
+  5. serving — Qwen2-0.5B at full width, f32, random weights from a fixed
+               seed, through ``ServingEngine`` over a one-shard DiLi page
+               index, as ``benchmarks/run.py::serving`` drives it (``SERVE``):
+               static, rescan and range modes give identical greedy tokens,
+               the index splits live and RANGE heals the snapshot, and
+               ``paged_attention`` launches once per layer per decode step;
+               then a profiler window and the kernel path against the
+               gather path on 4 decode steps;
+  6. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
                entries) with ``SCALE_KEYS`` loaded keys and as many r50
                ops, checked against the oracle; then a window of rounds
                under the per-phase timer and a profiler window.
@@ -59,10 +72,22 @@ FIG3A_EXPECTED = dict(rounds=107, load_rounds=34, settle_rounds=44,
 # (PERF.md, "Cells")
 SCALE_KEYS = 1 << 15
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the CUDA-core
-# rate, the nearest table entry for the kernel's int32 compares
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the CUDA-core f32
+# rate (also the nearest table entry for int32 compares) and the bf16
+# tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+# the kernels of the port's paths, each built from csrc/<name>.cu
+KERNELS = ("hybrid_search", "paged_attention")
+
+# the serving phase (benchmarks/run.py::serving at the full width of
+# Qwen2-0.5B, one DiLi shard): live requests, their prompt lengths and
+# new tokens, parked sequences padding the page index, timed decode steps
+# and the rebalance period
+SERVE = dict(live=8, prompt_lo=256, prompt_hi=512, max_new=32, idle=32,
+             page_size=16, steps=24, rebalance_every=4, seed=0)
 
 
 def fail(msg: str) -> None:
@@ -184,11 +209,17 @@ def breakdown(timer, rounds: int) -> dict:
 # ------------------------------------------------------------------ phases
 
 def phase_build() -> None:
-    from repro_torch.kernels import hybrid_search as HS
+    """Build every kernel's source at once, one ``nvcc`` each."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import build as B
     t0 = time.perf_counter()
-    path = HS.build(verbose=True)
-    log(f"[build] hybrid_search -> {path.relative_to(ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        paths = dict(zip(KERNELS, pool.map(
+            lambda name: B.build(name, verbose=True), KERNELS)))
+    for name, path in paths.items():
+        log(f"[build] {name} -> {path.relative_to(ROOT)} in "
+            f"{B.build_seconds[name]:.2f} s")
+    log(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
 
 
 def _registry(rng, m_live, m, c, coverage=0.6):
@@ -298,6 +329,132 @@ def phase_kernels() -> dict:
             f" one wrapper call back to back {call_ms * 1e3:.2f} us; plain "
             f"version (reference only) {plain_ms * 1e3:.3f} us on the device, "
             f"{plain_call_ms * 1e3:.2f} us per call; bit-identical")
+    return rec
+
+
+# (B, H, KH, D, pages per sequence, page size): the reference's test shapes
+# (tests/test_kernels.py) and the serving shape of Qwen2-0.5B
+PAGED_SHAPES = {"test_gqa": (4, 8, 2, 64, 8, 16),
+                "test_mha": (2, 16, 16, 128, 4, 32),
+                "test_mqa": (8, 4, 1, 64, 16, 8)}
+PAGED_TOL = {"f32": dict(atol=2e-5, rtol=2e-2),
+             "bf16": dict(atol=2e-2, rtol=2e-2)}
+
+
+def _paged_case(b, h, kh, d, pages, ps, dtype, seed, lens=None):
+    """The reference test's inputs on the card: q and pages from a seeded
+    normal, a random page table over a pool 3x the pages, random lengths
+    (or ``lens``)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    pool = pages * 3
+    dev = torch.device("cuda")
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+    q = t(rng.standard_normal((b, h, d)))
+    kp = t(rng.standard_normal((pool, ps, kh, d)) * 0.3)
+    vp = t(rng.standard_normal((pool, ps, kh, d)) * 0.3)
+    pt = rng.integers(0, pool, (b, pages)).astype(np.int32)
+    sl = (rng.integers(1, pages * ps + 1, (b,)) if lens is None
+          else np.asarray(lens)).astype(np.int32)
+    return [q, kp, vp, torch.from_numpy(pt).to(dev),
+            torch.from_numpy(sl).to(dev)]
+
+
+def _paged_library(q, kp, vp, pt, sl, ps):
+    """The nearest library call, timed for the table only: a gather of
+    each sequence's pages, then ``scaled_dot_product_attention`` with GQA
+    and the length mask."""
+    import torch
+    import torch.nn.functional as F
+    b, h, d = q.shape
+    pp = pt.shape[1]
+    kh = kp.shape[2]
+    k = kp[pt.long()].reshape(b, pp * ps, kh, d).transpose(1, 2)
+    v = vp[pt.long()].reshape(b, pp * ps, kh, d).transpose(1, 2)
+    mask = (torch.arange(pp * ps, device=q.device)[None, :]
+            < sl[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(q[:, :, None, :], k, v,
+                                          attn_mask=mask,
+                                          enable_gqa=True)[:, :, 0]
+
+
+def phase_paged_kernel(serve_lens) -> dict:
+    """``paged_attention`` against its plain twin on the card, at the
+    reference's test shapes in f32 and bf16 and at the serving shape (with
+    the serving phase's prompt lengths); the padding-page invariance; and,
+    per shape, device times beside the bound and the library call."""
+    import torch
+    from repro_torch.kernels import ops as K
+
+    shapes = [(f"{n}_{dt}", shp, dt) for n, shp in PAGED_SHAPES.items()
+              for dt in ("f32", "bf16")]
+    pages = -(-(SERVE["prompt_hi"] + SERVE["max_new"]) // SERVE["page_size"])
+    shapes.append(("serving_f32", (SERVE["live"], 14, 2, 64, pages,
+                                   SERVE["page_size"]), "f32"))
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rec = {}
+    for name, (b, h, kh, d, pp, ps), dt in shapes:
+        lens = serve_lens if name.startswith("serving") else None
+        args = _paged_case(b, h, kh, d, pp, ps, dts[dt], seed=b * 100 + h,
+                           lens=lens)
+        out = K.paged_attention(*args, page_size=ps)
+        twin = K.paged_attention_ref(*args, page_size=ps)
+        torch.cuda.synchronize()
+        err = float((out.float() - twin.float()).abs().max())
+        tol = PAGED_TOL[dt]
+        ok = bool(torch.allclose(out.float(), twin.float(), **tol))
+        check(ok, f"paged_attention {name}: kernel != twin, max err {err} "
+                  f"(tolerance {tol})")
+        lib = _paged_library(*args, ps)
+        lib_err = float((lib.float() - twin.float()).abs().max())
+        ms = device_ms(lambda: K.paged_attention(*args, page_size=ps),
+                       name="paged_attention_kernel")
+        plain_ms = device_ms(lambda: K.paged_attention_ref(*args,
+                                                           page_size=ps))
+        library_ms = device_ms(lambda: _paged_library(*args, ps))
+        # least work: each live token's K and V rows once, q, the output,
+        # the table and the lengths; 4*H*D flops per live token (q.k and
+        # p*v), at the rate of the inputs' type
+        live = int(args[4].clamp(max=pp * ps).sum())
+        elt = args[0].element_size()
+        nbytes = live * kh * d * 2 * elt + 2 * b * h * d * elt \
+            + b * pp * 4 + b * 4
+        nops = 4 * live * (h // kh) * kh * d
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / (CORE_OPS_PER_S if dt == "f32"
+                        else BF16_OPS_PER_S) * 1e3
+        rec[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         max_abs_err=err, library_err=lib_err,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations", shape=[b, h, kh, d, pp, ps],
+                         dtype=dt)
+        log(f"[kernels] paged_attention {name} B={b} H={h} KH={kh} D={d} "
+            f"PP={pp} S={ps}: max |kernel - twin| {err:.3e} (tolerance "
+            f"{tol}); kernel {ms * 1e3:.3f} us on the device per launch, "
+            f"bound {rec[name]['bound_ms'] * 1e3:.4f} us "
+            f"({rec[name]['bound_by']}); twin {plain_ms * 1e3:.3f} us; "
+            f"gather + SDPA {library_ms * 1e3:.3f} us (max |lib - twin| "
+            f"{lib_err:.3e})")
+
+    # positions at or past seq_len never count: scrambling the fully
+    # masked tail pages leaves the output unchanged
+    q, kp, vp, pt, sl = _paged_case(2, 4, 2, 32, 4, 8, torch.float32, 0,
+                                    lens=[9, 17])
+    pt2 = pt.clone()
+    pt2[0, 2:] = (pt2[0, 2:] + 5) % kp.shape[0]
+    pt2[1, 3:] = (pt2[1, 3:] + 3) % kp.shape[0]
+    o1 = K.paged_attention(q, kp, vp, pt, sl, page_size=8)
+    o2 = K.paged_attention(q, kp, vp, pt2, sl, page_size=8)
+    torch.cuda.synchronize()
+    err = float((o1 - o2).abs().max())
+    check(err <= 1e-6, f"paged_attention padding pages changed the output "
+                       f"by {err}")
+    log(f"[kernels] paged_attention ignores padding pages (max diff "
+        f"{err:.1e})")
     return rec
 
 
@@ -511,6 +668,243 @@ def phase_scale(n_keys: int, timed_rounds: int = 64) -> dict:
     return dict(ops_per_s=len(kinds) / dt, launches=launches)
 
 
+def serve_requests(vocab: int):
+    """The serving phase's live requests: prompt lengths and tokens drawn
+    from ``SERVE["seed"]``."""
+    import numpy as np
+    rng = np.random.default_rng(SERVE["seed"])
+    lens = rng.integers(SERVE["prompt_lo"], SERVE["prompt_hi"] + 1,
+                        SERVE["live"])
+    return [rng.integers(1, vocab, n).astype(np.int32) for n in lens]
+
+
+def _timed(fn, spent):
+    """``fn``, adding its wall time to ``spent[0]`` on each call that is
+    not nested in another timed call (``spent[1]`` is the depth)."""
+    def call(*a, **k):
+        spent[1] += 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            spent[1] -= 1
+            if spent[1] == 0:
+                spent[0] += time.perf_counter() - t0
+    return call
+
+
+def _serve_mode(cfg, params, prompts, mode: str) -> dict:
+    """One run of ``benchmarks/run.py::serving`` in ``mode`` (static,
+    rescan or range): park the idle sequences, admit the live ones, one
+    warm step, then the timed steps with a rebalance every
+    ``rebalance_every``-th (not in static)."""
+    import torch
+    from repro_torch.kernels import ops as K
+    from repro_torch.serving.engine import Request, ServingEngine
+    ps, live, idle = SERVE["page_size"], SERVE["live"], SERVE["idle"]
+    pages = -(-(SERVE["prompt_hi"] + SERVE["max_new"]) // ps)
+    eng = ServingEngine(cfg, params, page_size=ps,
+                        num_pages=(live + idle + 2) * pages, max_batch=live,
+                        dili_shards=1, use_kernel=True,
+                        refresh_mode="rescan" if mode == "static" else mode,
+                        device="cuda")
+    stats = eng.kv.backend.stats
+    K.paged_attention.launches = 0
+    K.hybrid_search.launches = 0
+    t0 = time.perf_counter()
+    for sid in range(live, live + idle):
+        eng.kv.alloc_pages(sid, pages)
+    park_rounds = stats["rounds"]
+    t_park = time.perf_counter() - t0
+    reqs = [Request(seq_id=i, prompt=p, max_new=SERVE["max_new"])
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.admit(r)
+    torch.cuda.synchronize()
+    t_admit = time.perf_counter() - t0
+    admit_rounds = stats["rounds"] - park_rounds
+    eng.step()                                   # warm step
+    torch.cuda.synchronize()
+    # the rebalance's own cost: balancer + drain + heal, timed where the
+    # engine calls them (nothing else calls them during the timed steps)
+    spent = [0.0, 0]
+    for obj, fn in ((eng.balancer, "step"), (eng.kv.client, "drain"),
+                    (eng.kv, "refresh_seqs"), (eng.kv, "refresh_table")):
+        setattr(obj, fn, _timed(getattr(obj, fn), spent))
+    step_ms, reb = [], []
+    t_all = time.perf_counter()
+    for s in range(SERVE["steps"]):
+        rebalance = mode != "static" and \
+            s % SERVE["rebalance_every"] == SERVE["rebalance_every"] - 1
+        r0, subs0 = stats["rounds"], len(eng.kv.backend.sublists(0))
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        eng.step(rebalance=rebalance)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rebalance:
+            reb.append(dict(ms=1e3 * spent[0], step_ms=1e3 * dt,
+                            rounds=stats["rounds"] - r0,
+                            sublists=(subs0,
+                                      len(eng.kv.backend.sublists(0)))))
+        else:
+            step_ms.append(1e3 * dt)
+    wall = time.perf_counter() - t_all
+    for obj, fn in ((eng.balancer, "step"), (eng.kv.client, "drain"),
+                    (eng.kv, "refresh_seqs"), (eng.kv, "refresh_table")):
+        delattr(obj, fn)
+    launches = K.paged_attention.launches
+    return dict(eng=eng, reqs=reqs, pages=pages, wall=wall, step_ms=step_ms,
+                reb=reb,
+                launches=launches, hs_launches=K.hybrid_search.launches,
+                tokens=[list(r.out) for r in reqs], stats=dict(stats),
+                park=(park_rounds, t_park), admit=(admit_rounds, t_admit),
+                sublists=len(eng.kv.backend.sublists(0)))
+
+
+def _kernel_vs_gather(eng, steps: int = 4) -> float:
+    """``paged_decode_step`` with the kernel and with the gather on
+    identical inputs for ``steps`` steps from the engine's live state.
+    Logits within 1e-3; the pages written identically where the inputs
+    are identical (layer 0, and every cell not written this step), the
+    later layers' new K/V within 1e-3 (their inputs carry the two
+    attentions' rounding). Returns the largest logit difference."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.paged import paged_decode_step
+    cfg, ps = eng.cfg, eng.page_size
+    live = [r for r in eng.active if not r.done]
+    ids = [r.seq_id for r in live]
+    pt = eng.kv.page_table(ids, [eng._pages(r) for r in live])
+    sl = np.asarray([len(r.prompt) + len(r.out) - 1 for r in live],
+                    np.int32)
+    tok = torch.tensor([[r.out[-1]] for r in live], device="cuda")
+    kp, vp = eng.kv.k_pages.clone(), eng.kv.v_pages.clone()
+    worst = 0.0
+    for _ in range(steps):
+        ka, va = kp.clone(), vp.clone()
+        kb, vb = kp.clone(), vp.clone()
+        la, _, _ = paged_decode_step(eng.params, cfg, tok, ka, va, pt, sl,
+                                     page_size=ps, use_kernel=True)
+        lb, _, _ = paged_decode_step(eng.params, cfg, tok, kb, vb, pt, sl,
+                                     page_size=ps, use_kernel=False)
+        err = float((la - lb).abs().max())
+        worst = max(worst, err)
+        check(err <= 1e-3, f"serving: kernel vs gather logits differ by "
+                           f"{err}")
+        for a, b_, base in ((ka, kb, kp), (va, vb, vp)):
+            check(torch.equal(a[0], b_[0]),
+                  "serving: layer 0 pages differ between kernel and gather")
+            new = (a != base) | (b_ != base)
+            check(torch.equal(a[~new], b_[~new]),
+                  "serving: a page cell outside this step's writes changed")
+            check(float((a - b_).abs().max()) <= 1e-3,
+                  "serving: later layers' new K/V differ by more than 1e-3")
+        kp, vp = ka, va
+        tok = la.argmax(-1, keepdim=True)
+        sl = sl + 1
+    return worst
+
+
+def phase_serving() -> dict:
+    """Qwen2-0.5B at full width, f32, random weights from a fixed seed,
+    through ``ServingEngine(use_kernel=True, dili_shards=1)`` in the three
+    modes of ``benchmarks/run.py::serving``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("qwen2_0_5b")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SERVE["seed"], dtype=torch.float32,
+                           device="cuda")
+    torch.cuda.synchronize()
+    log(f"[serving] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{sum(p.numel() for p in params.parameters()) / 1e6:.1f} M "
+        f"random f32 weights in {time.perf_counter() - t0:.1f} s")
+    prompts = serve_requests(cfg.vocab)
+    runs = {}
+    for mode in ("static", "rescan", "range"):
+        r = runs[mode] = _serve_mode(cfg, params, prompts, mode)
+        decode_steps = 1 + SERVE["steps"]
+        check(r["launches"] == cfg.n_layers * decode_steps,
+              f"serving {mode}: paged_attention launched {r['launches']} "
+              f"times, not {cfg.n_layers} layers x {decode_steps} steps")
+        toks = SERVE["steps"] * SERVE["live"]
+        reb = r["reb"]
+        log(f"[serving] {mode}: {toks / r['wall']:.1f} tokens/s over "
+            f"{SERVE['steps']} steps ({r['wall']:.3f} s); decode step "
+            f"{statistics.median(r['step_ms']):.2f} ms median "
+            f"({min(r['step_ms']):.2f}-{max(r['step_ms']):.2f}); "
+            + (f"rebalances (balancer + drain + heal) "
+               f"{[round(x['ms'], 1) for x in reb]} ms in steps of "
+               f"{[round(x['step_ms'], 1) for x in reb]} ms, DiLi rounds "
+               f"{[x['rounds'] for x in reb]}, sublists "
+               f"{[x['sublists'] for x in reb]}; " if reb else "")
+            + f"parking {SERVE['idle']} sequences {r['park'][0]} rounds "
+            f"{r['park'][1]:.1f} s, admitting {SERVE['live']} "
+            f"{r['admit'][0]} rounds {r['admit'][1]:.1f} s; "
+            f"paged_attention launches {r['launches']}, hybrid_search "
+            f"{r['hs_launches']}; stats {json.dumps(r['stats'])}")
+    static, rescan, ranged = runs["static"], runs["rescan"], runs["range"]
+    check(rescan["tokens"] == static["tokens"]
+          and ranged["tokens"] == static["tokens"],
+          "serving: greedy tokens differ across static/rescan/range")
+    for mode in ("rescan", "range"):
+        check(runs[mode]["sublists"] > 1,
+              f"serving {mode}: the page index never split")
+    check(ranged["stats"]["range_hits"] > 0,
+          "serving range: no RANGE segment was served by the pre-pass")
+
+    eng = static["eng"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    pa = sum(e.self_device_time_total for e in ev
+             if "paged_attention_kernel" in e.key) / 1e6
+    top = sorted(ev, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:5]
+    log(f"[serving] profiler, 2 decode steps: wall {wall * 1e3:.2f} ms, "
+        f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.2f}% of "
+        f"wall), paged_attention {pa * 1e3:.3f} ms; top: " + "; ".join(
+            f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+            for e in top))
+    worst = _kernel_vs_gather(eng)
+    log(f"[serving] kernel vs gather on 4 decode steps: max |logits| "
+        f"difference {worst:.3e} (<= 1e-3), layer-0 pages identical")
+
+    # decode to the end: each finished request frees its pages
+    r0, t0 = eng.kv.backend.stats["rounds"], time.perf_counter()
+    while eng.active:
+        eng.step()
+    t_free = time.perf_counter() - t0
+    parked = SERVE["idle"] * static["pages"]
+    check(all(r.done and len(r.out) == SERVE["max_new"]
+              for r in static["reqs"])
+          and len(eng.kv.free_slots) == eng.kv.num_pages - parked,
+          "serving: finished requests did not free their pages")
+    log(f"[serving] decoding to {SERVE['max_new']} tokens freed "
+        f"{SERVE['live']} sequences' pages: "
+        f"{eng.kv.backend.stats['rounds'] - r0} DiLi rounds, "
+        f"{t_free:.1f} s")
+    lens = [len(p) for p in prompts]
+    return dict(runs={m: {k: v for k, v in r.items()
+                          if k not in ("eng", "reqs")}
+                      for m, r in runs.items()},
+                busy_share=busy / wall, lens=lens, kvg=worst)
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> None:
@@ -524,11 +918,17 @@ def main() -> None:
 
     phase_build()
     krec = phase_kernels()
+    from repro_torch.configs import get_config
+    serve_lens = [len(p) for p in
+                  serve_requests(get_config("qwen2_0_5b").vocab)]
+    prec = phase_paged_kernel(serve_lens)
     f3 = phase_fig3a()
     phase_client()
+    serving = phase_serving()
     scale = phase_scale(SCALE_KEYS)
 
     k = krec["fig3a"]
+    p = prec["serving_f32"]
     kernels = [dict(
         name="hybrid_search", route="cuda",
         source="src/repro_torch/kernels/csrc/hybrid_search.cu",
@@ -538,7 +938,18 @@ def main() -> None:
         bound_by=k["bound_by"], library_ms=None,
         shape=k["shape"], call_ms=k["call_ms"],
         ms_scale_path=krec["scale_path"]["ms"],
-        launches_scale=scale["launches"])]
+        launches_scale=scale["launches"]), dict(
+        name="paged_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:29",
+        launches=serving["runs"]["range"]["launches"],
+        max_abs_err=p["max_abs_err"],
+        ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+        bound_by=p["bound_by"], library_ms=p["library_ms"],
+        shape=p["shape"], dtype=p["dtype"],
+        launches_all_modes=sum(r["launches"]
+                               for r in serving["runs"].values()),
+        ms_by_shape={n: r["ms"] for n, r in prec.items()})]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()

@@ -10,7 +10,7 @@
 """
 from .backend import LocalBackend
 from .client import DiLiClient, RegistryCache, local_client
-from .futures import BatchResult, OpFuture
+from .futures import BatchResult, OpFuture, RangeResult
 
 __all__ = ["BatchResult", "DiLiClient", "LocalBackend", "OpFuture",
-           "RegistryCache", "local_client"]
+           "RangeResult", "RegistryCache", "local_client"]

@@ -49,6 +49,12 @@ class LocalBackend:
         self.cluster = cluster
         self.cfg = cluster.cfg
         self._issued: set = set()
+        # RANGE ops issued through this backend; items are captured at
+        # harvest time (``Cluster.take_result`` purges the cluster-side
+        # parts, so they must be pulled *before* the id is recycled) and
+        # held here until the caller fetches them.
+        self._range_issued: set = set()
+        self._range_items: Dict[int, List[Tuple[int, int]]] = {}
 
     # ------------------------------------------------------------- protocol
     @property
@@ -66,7 +72,13 @@ class LocalBackend:
 
     def submit_range(self, shard: int, lo: int, hi: int,
                      limit: int) -> int:
-        return self.cluster.submit_range(shard, lo, hi, limit)
+        op_id = self.cluster.submit_range(shard, lo, hi, limit)
+        self._issued.add(op_id)
+        self._range_issued.add(op_id)
+        return op_id
+
+    def take_range_items(self, op_id: int) -> List[Tuple[int, int]]:
+        return self._range_items.pop(op_id)
 
     def step(self) -> List[Completion]:
         """One round; returns and recycles completions of ops issued
@@ -83,6 +95,11 @@ class LocalBackend:
                 if op_id in self.cluster.results]
         for op_id in done:
             src = self.cluster.result_src.get(op_id, -1)
+            if op_id in self._range_issued:
+                # pull the scan items before take_result purges them
+                self._range_items[op_id] = \
+                    self.cluster.take_range_items(op_id)
+                self._range_issued.discard(op_id)
             val = self.cluster.take_result(op_id)   # pops + recycles the id
             self._issued.discard(op_id)
             comps.append((op_id, val, src))

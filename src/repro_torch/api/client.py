@@ -46,7 +46,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 from ..core.types import OP_FIND, OP_INSERT, OP_REMOVE
 
 from .backend import LocalBackend
-from .futures import BatchResult, OpFuture
+from .futures import BatchResult, OpFuture, RangeResult
 
 
 class RegistryCache:
@@ -113,6 +113,7 @@ class DiLiClient:
         self._inflight: Dict[int, OpFuture] = {}     # op_id -> future
         self._busy_mut: Set[int] = set()             # keys with mutation out
         self._find_out: Dict[int, int] = {}          # key -> in-flight FINDs
+        self._scan_spans: Dict[int, Tuple[int, int]] = {}  # op_id -> [lo,hi)
         self._cache = RegistryCache(backend.registry_entries(self.home_shard))
         self._refresh_from: Optional[int] = None     # pending cache refresh
         self._rounds = 0
@@ -175,10 +176,26 @@ class DiLiClient:
     def remove(self, key: int) -> OpFuture:
         return self._enqueue(OP_REMOVE, key)
 
-    def range(self, lo: int, hi: int, limit: int = 4096):
-        """RANGE scans come with the RANGE slice of the port."""
-        raise NotImplementedError(
-            "range: RANGE scans come with a later slice of the port")
+    def range(self, lo: int, hi: int, limit: int = 4096) -> RangeResult:
+        """RANGE(lo, hi, limit): the sorted (key, value) pairs in
+        ``[lo, hi)``, at most ``limit`` of them (DESIGN.md §16).
+
+        Always aimed at the *primary* predicted to own ``lo`` — scans
+        never ride read replicas (a replica's bounded staleness is fine
+        for a single FIND but would tear a multi-key snapshot). Ordering:
+        a scan waits for every in-flight mutation inside its span, and
+        later mutations into the span hold until the scan resolves — the
+        per-key discipline lifted to key *ranges*.
+        """
+        if not getattr(self.cfg, "range_scan", False):
+            raise ValueError(
+                "range: cfg.range_scan is off — the scan pre-pass and "
+                "MSG_RANGE handlers are off in shard_round")
+        if limit < 1:
+            raise ValueError(f"range: limit={limit} must be >= 1")
+        fut = RangeResult(self, lo, hi, limit)
+        self._queue.append(fut)
+        return fut
 
     def find_batch(self, keys: Sequence[int]) -> BatchResult:
         return BatchResult([self.find(k) for k in keys])
@@ -249,6 +266,16 @@ class DiLiClient:
                 # backends only report ops issued through them, and a
                 # backend supports one driving client — unreachable unless
                 # two clients share a backend (unsupported)
+                continue
+            if isinstance(fut, RangeResult):
+                # the completion value is the item count (or error code);
+                # the pairs are fetched once from the backend. The src
+                # shard is whichever served the *last* segment — not a
+                # routing signal, so no wrong-route refresh for scans.
+                fut._resolve(val, src, self.backend.take_range_items(op_id))
+                fut.op_id = None
+                self._scan_spans.pop(op_id, None)
+                ndone += 1
                 continue
             fut._resolve(val, src)
             fut.op_id = None
@@ -346,9 +373,17 @@ class DiLiClient:
             return
         budget = self.max_inflight - len(self._inflight)
         per_round = self.cfg.batch_size      # backend feed bound per shard
+        # a RANGE occupies one feed row but its serving shard may emit up
+        # to range_batch items + a forward/terminal in one round — charge
+        # it that many budget units so scans cannot overrun the outbox
+        # headroom the pacing model reserves (see _auto_inflight)
+        scan_cost = getattr(self.cfg, "range_batch", 32) + 2
         admit: Dict[int, List[OpFuture]] = {}
+        scans: Dict[int, List[RangeResult]] = {}
         kept: deque = deque()
         skip: Set[int] = set()
+        skip_spans: List[Tuple[int, int]] = []   # deferred scans' spans
+        inflight_spans = list(self._scan_spans.values())
         for qi, fut in enumerate(self._queue):
             if budget <= 0:
                 # budget spent: everything left stays queued in order —
@@ -356,10 +391,39 @@ class DiLiClient:
                 # each pump O(queue) for nothing)
                 kept.extend(islice(self._queue, qi, None))
                 break
+            if isinstance(fut, RangeResult):
+                lo, hi = fut.lo, fut.hi
+                # a scan waits for in-flight mutations in its span and
+                # for earlier-deferred ops on keys inside it (submission
+                # order); concurrent FINDs and scans commute with it
+                blocked = (any(lo <= k < hi for k in self._busy_mut)
+                           or any(lo <= k < hi for k in skip))
+                if blocked or budget < scan_cost:
+                    kept.append(fut)
+                    skip_spans.append((lo, hi))
+                    continue
+                shard = self.route(lo)          # primary-pinned (§16)
+                lane = scans.setdefault(shard, [])
+                if (len(lane) + len(admit.get(shard, ()))) >= per_round:
+                    kept.append(fut)
+                    skip_spans.append((lo, hi))
+                    continue
+                fut.shard = shard
+                lane.append(fut)
+                inflight_spans.append((lo, hi))
+                budget -= scan_cost
+                continue
             key = fut.key
             is_find = fut.kind == OP_FIND
             blocked = (key in self._busy_mut or key in skip
                        or (not is_find and self._find_out.get(key, 0)))
+            if not is_find and not blocked:
+                # mutations hold while any scan (in flight or deferred
+                # ahead of us) covers their key — the span-level ordering
+                # that makes a scan a consistent cut (DESIGN.md §16)
+                blocked = any(lo <= key < hi
+                              for lo, hi in inflight_spans) \
+                    or any(lo <= key < hi for lo, hi in skip_spans)
             if blocked:
                 kept.append(fut)
                 skip.add(key)
@@ -369,7 +433,7 @@ class DiLiClient:
             else:
                 shard, via_rep = self.route(key), False
             lane = admit.setdefault(shard, [])
-            if len(lane) >= per_round:
+            if (len(lane) + len(scans.get(shard, ()))) >= per_round:
                 kept.append(fut)
                 skip.add(key)
                 continue
@@ -389,6 +453,13 @@ class DiLiClient:
             for f, op_id in zip(futs, ids):
                 f.op_id = op_id
                 self._inflight[op_id] = f
+        for shard, rfuts in scans.items():
+            for f in rfuts:
+                op_id = self.backend.submit_range(shard, f.lo, f.hi,
+                                                  f.limit)
+                f.op_id = op_id
+                self._inflight[op_id] = f
+                self._scan_spans[op_id] = (f.lo, f.hi)
 
     # ------------------------------------------------------------ inspection
     @property

@@ -2,8 +2,7 @@
 
 A ``DiLiClient`` call returns immediately with an ``OpFuture``; the op is
 admitted, routed, executed and its result harvested by the client's
-``pump()``/``drain()`` driver loop. (RANGE futures come with the RANGE
-slice of the port.) Batched calls return a ``BatchResult``
+``pump()``/``drain()`` driver loop. Batched calls return a ``BatchResult``
 wrapping one future per op in submission order.
 
 Futures deliberately carry routing metadata (``shard`` = the predicted
@@ -13,7 +12,7 @@ registry cache refreshes on.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from ..core.types import OP_FIND, OP_INSERT, OP_REMOVE
 
@@ -75,6 +74,108 @@ class OpFuture:
         state = (f"done result={bool(self._result)}" if self.done
                  else "pending")
         return f"<OpFuture {self._opname()}({self.key}) {state}>"
+
+
+class BatchResult:
+    """Futures of one batched submission, in submission order."""
+
+    __slots__ = ("futures",)
+
+    def __init__(self, futures: Sequence[OpFuture]):
+        self.futures = list(futures)
+
+    @property
+    def done(self) -> bool:
+        return all(f.done for f in self.futures)
+
+    def results(self, wait: bool = True) -> List[bool]:
+        return [f.result(wait=wait) for f in self.futures]
+
+    def __iter__(self):
+        return iter(self.futures)
+
+    def __len__(self) -> int:
+        return len(self.futures)
+
+    def __getitem__(self, i):
+        return self.futures[i]
+
+    def __repr__(self) -> str:
+        ndone = sum(f.done for f in self.futures)
+        return f"<BatchResult {ndone}/{len(self.futures)} done>"
+
+
+class RangeResult:
+    """One pending RANGE(lo, hi, limit) scan (DESIGN.md §16).
+
+    Resolves to the scan's sorted ``(key, value)`` items plus the item
+    count the terminal result reported. A negative count is a protocol
+    error code (e.g. ``RES_OVERFLOW`` when the scan exhausted its hop
+    budget before emitting anything); ``items()``/``count()`` raise on
+    it, ``raw()`` exposes it.
+    """
+
+    __slots__ = ("lo", "hi", "limit", "shard", "src", "op_id",
+                 "_client", "_count", "_items")
+
+    def __init__(self, client, lo: int, hi: int, limit: int):
+        self._client = client
+        self.lo = int(lo)
+        self.hi = int(hi)
+        self.limit = int(limit)
+        self.shard: Optional[int] = None    # predicted owner of ``lo``
+        self.src: Optional[int] = None      # shard that sent the terminal
+        self.op_id: Optional[int] = None
+        self._count: Optional[int] = None
+        self._items: Optional[List[Tuple[int, int]]] = None
+
+    @property
+    def done(self) -> bool:
+        return self._count is not None
+
+    def _wait(self, wait: bool) -> None:
+        if self._count is None:
+            if not wait:
+                raise RuntimeError(
+                    f"range [{self.lo}, {self.hi}) still pending — "
+                    f"pump()/drain() the client first")
+            self._client.drain()
+
+    def items(self, wait: bool = True) -> List[Tuple[int, int]]:
+        """The scanned ``(key, value)`` pairs, sorted by key."""
+        self._wait(wait)
+        if self._count < 0:
+            raise RuntimeError(
+                f"range [{self.lo}, {self.hi}) failed with code "
+                f"{self._count}")
+        return list(self._items)
+
+    def keys(self, wait: bool = True) -> List[int]:
+        return [k for k, _ in self.items(wait)]
+
+    def count(self, wait: bool = True) -> int:
+        self._wait(wait)
+        if self._count < 0:
+            raise RuntimeError(
+                f"range [{self.lo}, {self.hi}) failed with code "
+                f"{self._count}")
+        return int(self._count)
+
+    def raw(self) -> int:
+        """The raw terminal count / error code (no wait)."""
+        if self._count is None:
+            raise RuntimeError("range still pending")
+        return int(self._count)
+
+    def _resolve(self, count: int, src: int,
+                 items: List[Tuple[int, int]]) -> None:
+        self._count = int(count)
+        self.src = int(src)
+        self._items = items
+
+    def __repr__(self) -> str:
+        state = (f"done count={self._count}" if self.done else "pending")
+        return f"<RangeResult [{self.lo}, {self.hi}) {state}>"
 
 
 class BatchResult:

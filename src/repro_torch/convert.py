@@ -1,7 +1,12 @@
-"""Carry DiLi state between the reference package and the port.
+"""Carry state and weights between the reference package and the port.
 
-DiLi has no weights; its counterpart of carrying parameters across is a
-shard's state. ``*_to_numpy`` turns a state — the port's tensors, or the
+``params_from_numpy`` builds the port's ``DenseLM`` from the reference's
+parameter tree (``models.transformer.init_params``) as numpy arrays, with
+its layer-stacked ``blocks``, so both packages compute with the same
+weights.
+
+The DiLi protocol's counterpart of carrying weights across is a shard's
+state. ``*_to_numpy`` turns a state — the port's tensors, or the
 reference's arrays — into nested dicts of numpy arrays keyed by field
 name; ``shard_state_from_numpy`` / ``bg_table_from_numpy`` build the
 port's tensors on a device from such dicts. The reference's uint32 ref
@@ -15,6 +20,8 @@ import numpy as np
 import torch
 
 from .core.bg.fsm import BgState
+from .models.config import ArchConfig
+from .models.transformer import DenseLM
 from .core.types import (Blocks, Pool, Registry, ReplicaSlots, RepSessions,
                          ShardState, resolve_device)
 
@@ -64,3 +71,38 @@ def shard_state_from_numpy(d: dict, device="cuda") -> ShardState:
 def bg_table_from_numpy(d: dict, device="cuda") -> BgState:
     """A port ``BgTable`` on ``device`` from a dict of numpy arrays."""
     return _build(BgState, d, resolve_device(device))
+
+
+@torch.no_grad()
+def params_from_numpy(tree: dict, cfg: ArchConfig, *, dtype=None,
+                      device="cuda") -> DenseLM:
+    """A port ``DenseLM`` on ``device`` from the reference's parameter tree
+    as nested dicts of numpy arrays: ``embed`` [V, D], ``final_norm``,
+    optional ``lm_head``, and ``blocks`` with a leading layer axis
+    (``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo,bq,bk,bv}``,
+    ``mlp.{w_gate,w_up,w_down}``). ``dtype`` defaults to the tree's."""
+    if dtype is None:
+        dtype = torch.from_numpy(
+            np.zeros((0,), np.asarray(tree["embed"]).dtype)).dtype
+    model = DenseLM(cfg, dtype=dtype, device=device)
+
+    def put(param, arr):
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"params_from_numpy: shape {arr.shape} vs "
+                             f"{tuple(param.shape)}")
+        param.copy_(torch.from_numpy(np.array(arr, order="C")))
+
+    put(model.embed, tree["embed"])
+    put(model.final_norm, tree["final_norm"])
+    if not cfg.tie_embeddings:
+        put(model.lm_head, tree["lm_head"])
+    stacked = tree["blocks"]
+    for i, blk in enumerate(model.blocks):
+        put(blk.ln1, stacked["ln1"][i])
+        put(blk.ln2, stacked["ln2"][i])
+        for name, _ in blk.attn.named_parameters():
+            put(getattr(blk.attn, name), stacked["attn"][name][i])
+        for name, _ in blk.mlp.named_parameters():
+            put(getattr(blk.mlp, name), stacked["mlp"][name][i])
+    return model

@@ -10,8 +10,11 @@ row's kind; the touched rows are written back to the device at the end of
 the round. The reference runs the same two stages as one jitted function
 (``lax.while_loop`` + ``lax.switch``).
 
-``replication`` and ``range_scan`` are not ported yet and raise; so does
-any message kind or background phase outside this slice.
+With ``cfg.range_scan`` the packed blocks are refreshed every round and
+the RANGE pre-pass (``range_scan.range_prepass``) serves scan cursors from
+them before anything mutates; the rest walk in the serial pass
+(``range_scan.h_range``). ``replication`` is not ported yet and raises; so
+does any message kind or background phase outside this slice.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from . import bg as B
 from . import blocks as BL
 from . import messages as M
 from . import ops as O
+from . import range_scan as RS
 from . import refs
 from . import registry as REG
 from .host import HostShard
@@ -40,7 +44,6 @@ LATER = {
     M.MSG_SWITCH_ST_ACK: "Switch", M.MSG_SWITCH_SERVER: "Switch",
     M.MSG_REG_MERGED: "Merge", M.MSG_REPLICA_DELTA: "replication",
     M.MSG_REPLICA_INSTALL: "replication", M.MSG_REPLICA_DROP: "replication",
-    M.MSG_RANGE: "RANGE", M.MSG_RANGE_ITEM: "RANGE",
 }
 
 
@@ -54,7 +57,8 @@ class RoundOut(NamedTuple):
     comp_slot: torch.Tensor   # [K] client slots completed this round (-1 pad)
     comp_val: torch.Tensor    # [K]
     comp_src: torch.Tensor    # [K] shard that executed each completed op
-    comp_key: torch.Tensor    # [K] SH_KEY for scalar completions
+    comp_key: torch.Tensor    # [K] SH_KEY for scalar completions; a real
+                              # key marks the row as one RANGE item
     fast_hits: torch.Tensor   # int32 — finds answered by the fast-path
     mut_hits: torch.Tensor    # int32 — mutations applied by the fast-path
     bg_active: torch.Tensor   # int32 — background slots busy after the round
@@ -112,6 +116,8 @@ _HANDLERS = {
     M.MSG_REG_SPLIT: _handle_reg_split,
     M.MSG_NET_ACK: _noop,   # transport-level; consumed before the round
     M.MSG_EPOCH: _handle_epoch,
+    M.MSG_RANGE: RS.h_range,
+    M.MSG_RANGE_ITEM: RS.h_range_item,
 }
 
 
@@ -135,9 +141,9 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
     """``inbox``/``client``: [*, FIELDS] int32 rows (numpy or tensors),
     MSG_NONE-padded. ``state`` and ``bg`` are not modified. ``timer``, if
     given, is a ``timing.PhaseTimer`` that receives the phase breakdown."""
-    if cfg.replication or cfg.range_scan:
+    if cfg.replication:
         raise NotImplementedError(
-            "replication and range_scan come with a later slice of the port")
+            "replication comes with a later slice of the port")
     t = timer if timer is not None else (lambda name: contextlib.nullcontext())
     me = int(me)
     rows_np = np.concatenate([_host_rows(inbox), _host_rows(client)])
@@ -147,10 +153,21 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
     rows = torch.from_numpy(rows_np).to(dev)
 
     # rebuild dirty packed blocks against round-start state, before any
-    # mutation (DESIGN.md §12)
-    if cfg.block_probe:
+    # mutation (DESIGN.md §12); the RANGE pre-pass serves from them too
+    if cfg.block_probe or cfg.range_scan:
         with t("refresh_blocks"):
             state = BL.refresh_blocks(state, me, cfg)
+
+    # RANGE gather pre-pass (DESIGN.md §16): serve scan cursors from valid
+    # packed blocks against the same round-start snapshot; its rows lead
+    # the outbox, as in the reference
+    outbox, count = M.empty_outbox(cfg.mailbox_cap)
+    range_handled = np.zeros((n_rows,), bool)
+    range_hits = 0
+    if cfg.range_scan:
+        with t("range_prepass"):
+            outbox, count, range_handled, range_hits = RS.range_prepass(
+                state, rows, rows_np, me, outbox, count, cfg)
 
     with t("round_prepass"):
         pre = BA.round_prepass(state, rows, rows_np, me, cfg,
@@ -178,7 +195,8 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
     blk_hits = int(pv[-1])
 
     kind0 = rows_np[:, M.F_KIND]
-    skip = (kind0 == M.MSG_NONE) | find_elig | mut_elig | handled
+    skip = (kind0 == M.MSG_NONE) | find_elig | mut_elig | handled \
+        | range_handled
     serial_mut = bool(np.any(~skip & ~np.isin(kind0, _PURE_KINDS)))
 
     # stable-partition the rows the serial pass must execute to the front
@@ -195,7 +213,6 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
     csrcs = np.full((n_rows,), me, np.int32)
     ckeys = np.full((n_rows,), SH_KEY, np.int32)
 
-    outbox, count = M.empty_outbox(cfg.mailbox_cap)
     h = HostShard(state)
     hb = B.HostBg(bg)
     with t("serial_loop"):
@@ -234,6 +251,6 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
         move_hits=torch.tensor(int(handled.sum()), dtype=i32),
         blk_hits=torch.tensor(blk_hits, dtype=i32),
         rep_hits=torch.tensor(0, dtype=i32),
-        range_hits=torch.tensor(0, dtype=i32),
+        range_hits=torch.tensor(range_hits, dtype=i32),
         ent_hits=ent_hits)
 

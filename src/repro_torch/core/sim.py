@@ -9,9 +9,11 @@ under ``seed``: every random stream is spawned from one root
 ``SeedSequence`` exactly as in the reference, so a run draws the same
 numbers draw for draw.
 
-This slice routes directly. The reliable transport and nemesis, WAL
-durability, elastic membership changes, Move/Merge, read replication and
-RANGE scans raise ``NotImplementedError`` until their slices land.
+RANGE scans (DESIGN.md §16) complete here: item rows accumulate until the
+terminal count says the set is whole. This slice routes directly. The
+reliable transport and nemesis, WAL durability, elastic membership
+changes, Move/Merge and read replication raise ``NotImplementedError``
+until their slices land.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from . import bg as B
 from . import messages as M
+from . import range_scan as RS
 from . import refs
 from . import registry as reg_ops
 from .membership import Membership
@@ -227,6 +230,12 @@ class Cluster:
         self.last_completions: List[Tuple[int, int, int]] = []
         self._ids = OpIdAllocator()
         self._pending_ops: Dict[int, Tuple[int, int]] = {}
+        # RANGE scans in flight (DESIGN.md §16): item rows accumulate in
+        # ``_range_parts`` until the terminal result's count says the set
+        # is complete
+        self._range_ops: set = set()
+        self._range_parts: Dict[int, List[Tuple[int, int]]] = {}
+        self._range_done: Dict[int, Tuple[int, int]] = {}
         self._views: Dict[int, dict] = {}
         self.round_no = 0
         self.delay_prob = delay_prob
@@ -271,13 +280,43 @@ class Cluster:
         return ids
 
     def submit_range(self, shard: int, lo: int, hi: int, limit: int) -> int:
-        raise NotImplementedError(f"RANGE scans come with {LATER_SLICE}")
+        """Enqueue a RANGE(lo, hi, limit) scan at server ``shard``
+        (DESIGN.md §16): all keys in ``[lo, hi)``, at most ``limit`` of
+        them. Returns an op id; the result value is the item count and
+        ``take_range_items`` pops the (key, value) pairs — call it
+        *before* ``take_result`` recycles the id."""
+        if not self.cfg.range_scan:
+            raise ValueError(
+                "submit_range: cfg.range_scan is off — the RANGE pre-pass "
+                "and serial walk are off in shard_round")
+        if not self.membership.is_routable(shard):
+            raise ValueError(f"submit_range: shard {shard} is not routable")
+        lo, hi, limit = int(lo), int(hi), int(limit)
+        if lo < KEY_MIN or hi > KEY_MAX + 1 or limit < 1:
+            raise ValueError(
+                f"submit_range: span [{lo}, {hi}) / limit {limit} out "
+                f"of bounds (keys in [{KEY_MIN}, {KEY_MAX}], limit >= 1)")
+        slot = self._ids.alloc()
+        row = RS.make_range_row(shard, lo, hi, limit, slot)
+        self.backlog[shard] = np.concatenate(
+            [self.backlog[shard], row[None]], axis=0)
+        self._pending_ops[slot] = (-1, lo)
+        self._range_ops.add(slot)
+        self._range_parts[slot] = []
+        return slot
+
+    def take_range_items(self, op_id: int) -> List[Tuple[int, int]]:
+        """Pop a completed RANGE's (key, value) pairs, sorted by key."""
+        return sorted(self._range_parts.pop(op_id, []))
 
     def take_result(self, op_id: int) -> int:
         """Pop a completed op's result and recycle its id (KeyError while
         the op is still pending)."""
         val = self.results.pop(op_id)
         self.result_src.pop(op_id, None)
+        # a recycled id must not inherit a stale scan's items
+        self._range_parts.pop(op_id, None)
+        self._range_ops.discard(op_id)
         self._ids.release(op_id)
         return val
 
@@ -353,16 +392,28 @@ class Cluster:
                     self.stats["max_hops"] = max(self.stats["max_hops"],
                                                  int(hops.max()))
                     self.stats["delegated"] += int(hops.size)
-            cs, cv, cr = (_np(out.comp_slot), _np(out.comp_val),
-                          _np(out.comp_src))
+            cs, cv, cr, ck = (_np(out.comp_slot), _np(out.comp_val),
+                              _np(out.comp_src), _np(out.comp_key))
             done = cs >= 0
-            for slot, val, src in zip(cs[done], cv[done], cr[done]):
+            for slot, val, src, key in zip(cs[done], cv[done], cr[done],
+                                           ck[done]):
                 slot = int(slot)
+                if int(key) != SH_KEY:
+                    # one RANGE item — accumulate; publication waits for
+                    # the terminal count
+                    self._range_parts.setdefault(slot, []).append(
+                        (int(key), int(val)))
+                    continue
+                if slot in self._range_ops:
+                    # terminal scan result: F_A is the total item count
+                    self._range_done[slot] = (int(val), int(src))
+                    continue
                 self.results[slot] = int(val)
                 self.result_src[slot] = int(src)
                 self.last_completions.append((slot, int(val), int(src)))
                 self._pending_ops.pop(slot, None)
                 ndone += 1
+        ndone += self._publish_ranges()
 
         # per-entry op-rate EWMA update (once per round)
         alpha = 0.3
@@ -397,6 +448,23 @@ class Cluster:
                 self.round_no, self.last_completions, out_counts,
                 extra=sum(b.shape[0] for b in self.backlog)))
         return ndone
+
+    def _publish_ranges(self) -> int:
+        """Publish RANGE completions whose item parts have all arrived.
+        The terminal count, not arrival order, gates publication; a
+        negative count is an error result (e.g. RES_OVERFLOW) and
+        publishes at once."""
+        n = 0
+        for slot, (total, src) in list(self._range_done.items()):
+            if total >= 0 and len(self._range_parts.get(slot, ())) < total:
+                continue
+            self.results[slot] = total
+            self.result_src[slot] = src
+            self.last_completions.append((slot, total, src))
+            self._pending_ops.pop(slot, None)
+            del self._range_done[slot]
+            n += 1
+        return n
 
     def run(self, rounds: int) -> None:
         for _ in range(rounds):

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch twins.
 
-``ops.hybrid_search`` launches ``csrc/hybrid_search.cu`` (built for
-``sm_90a`` at first use) on CUDA tensors and runs ``ref.hybrid_search_ref``
-on CPU tensors. ``paged_attention`` is not ported yet (ROADMAP Queue 2).
+``ops.hybrid_search`` and ``ops.paged_attention`` launch
+``csrc/hybrid_search.cu`` and ``csrc/paged_attention.cu`` (built for
+``sm_90a`` at first use by ``build.py``) on CUDA tensors and run their
+plain twins in ``ref.py`` on CPU tensors.
 """
 from . import ops, ref  # noqa: F401

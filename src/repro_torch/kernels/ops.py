@@ -3,8 +3,9 @@
 A CUDA tensor goes to the hand-written Hopper kernel; a CPU tensor goes to
 the plain PyTorch version in ``ref.py``. There is no fallback between the
 two: a CUDA launch that fails raises. Each wrapper counts the launches of
-its kernel in a plain integer attribute (``hybrid_search.launches``), so a
-run can show that its main path went through the kernel.
+its kernel in a plain integer attribute (``hybrid_search.launches``,
+``paged_attention.launches``), so a run can show that its main path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -66,3 +67,83 @@ def hybrid_search_ref(keymin, blocks, queries):
     any device."""
     slot, found = ref_ops.hybrid_search_ref(keymin, blocks, queries)
     return slot, found & (queries != _INT32_MAX)
+
+
+# ------------------------------------------------------- paged attention
+
+_PA_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_paged(q, k_pages, v_pages, page_table, seq_lens,
+                 page_size: int) -> None:
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("seq_lens", seq_lens)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"paged_attention: {name} must be a tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"paged_attention: {name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError("paged_attention: inputs on different devices "
+                             f"({t.device} vs {q.device})")
+    if q.dim() != 3 or k_pages.dim() != 4:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} must be "
+                         f"[B,H,D] and k_pages {tuple(k_pages.shape)} "
+                         f"[P,S,KH,D]")
+    if q.dtype not in _PA_DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged_attention: q/k_pages/v_pages must share one "
+                        f"of {_PA_DTYPES}, got {q.dtype}/{k_pages.dtype}/"
+                        f"{v_pages.dtype}")
+    if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("paged_attention: page_table and seq_lens must be "
+                        "int32")
+    b, h, d = q.shape
+    n_pages, s, kh, dk = k_pages.shape
+    if v_pages.shape != k_pages.shape or dk != d or n_pages == 0:
+        raise ValueError(f"paged_attention: k_pages {tuple(k_pages.shape)} "
+                         f"/ v_pages {tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or tuple(seq_lens.shape) != (b,):
+        raise ValueError(f"paged_attention: page_table "
+                         f"{tuple(page_table.shape)} / seq_lens "
+                         f"{tuple(seq_lens.shape)} do not match B={b}")
+    if s != page_size:
+        raise ValueError(f"paged_attention: page_size={page_size} but the "
+                         f"pages hold {s} tokens")
+    if kh == 0 or h % kh != 0 or not 1 <= h // kh <= 32:
+        raise ValueError(f"paged_attention: H={h} query heads over KH={kh} "
+                         f"KV heads: the kernel takes 1..32 query heads "
+                         f"per KV head")
+    if d % 16 != 0 or not 16 <= d <= 256:
+        raise ValueError(f"paged_attention: head dim {d} must be a "
+                         f"multiple of 16 in [16, 256]")
+    if not 1 <= s <= 64:
+        raise ValueError(f"paged_attention: page size {s} must be in "
+                         f"[1, 64]")
+
+
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
+                    page_size: int):
+    """Decode attention over paged KV (one query token per sequence).
+
+    ``q`` [B, H, D]; ``k_pages``/``v_pages`` [P, S, KH, D] (f32 or bf16,
+    S == ``page_size``); ``page_table`` int32[B, PP] (page ids, clamped
+    into [0, P-1]; positions at or past ``seq_lens`` are masked, so tail
+    entries may name any page); ``seq_lens`` int32[B] → [B, H, D] in
+    ``q``'s dtype, with f32 arithmetic throughout.
+    """
+    _check_paged(q, k_pages, v_pages, page_table, seq_lens, page_size)
+    if q.device.type == "cuda":
+        from . import paged_attention as kernel
+        out = kernel.launch(q, k_pages, v_pages, page_table, seq_lens)
+        paged_attention.launches += 1
+        return out
+    if q.device.type == "cpu":
+        return ref_ops.paged_attention_ref(q, k_pages, v_pages, page_table,
+                                           seq_lens, page_size=page_size)
+    raise ValueError(f"paged_attention: no kernel for device {q.device}")
+
+
+paged_attention.launches = 0
+paged_attention_ref = ref_ops.paged_attention_ref

@@ -25,3 +25,27 @@ def hybrid_search_ref(keymin, blocks, queries):
                       c).to(torch.int32)
     found = eq.any(dim=1)
     return entry * c + pos, found
+
+
+def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens, *,
+                        page_size: int):
+    """Plain twin of ``paged_attention``: dense gather + masked softmax in
+    f32, output in ``q``'s dtype (the reference oracle's arithmetic).
+
+    Page ids are clamped into ``[0, P-1]`` as the kernel clamps them; the
+    reference's gather clamps too (its callers pass no negative id)."""
+    b, h, d = q.shape
+    n_pages, s, kh, _ = k_pages.shape
+    pp = page_table.shape[1]
+    groups = h // kh
+    pt = page_table.long().clamp(0, n_pages - 1)
+    k = k_pages[pt].reshape(b, pp * s, kh, d).float()
+    v = v_pages[pt].reshape(b, pp * s, kh, d).float()
+    qg = q.reshape(b, kh, groups, d).float()
+    scores = torch.einsum("bkgd,blkd->bkgl", qg, k) * (d ** -0.5)
+    pos = torch.arange(pp * s, device=q.device)[None, None, None, :]
+    valid = pos < seq_lens.to(q.device)[:, None, None, None]
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgl,blkd->bkgd", w, v)
+    return out.reshape(b, h, d).to(q.dtype)

@@ -248,7 +248,8 @@ def test_c4_work_outside_the_slice_raises():
     bg = TB.init_bg_table(cfg, device="cpu")
     none = np.zeros((0, TM.FIELDS), np.int32)
     for kind in (TM.MSG_MOVE_SH, TM.MSG_REP_INSERT, TM.MSG_SWITCH_SERVER,
-                 TM.MSG_REG_MERGED, TM.MSG_MOVE_ITEMS, TM.MSG_RANGE):
+                 TM.MSG_REG_MERGED, TM.MSG_MOVE_ITEMS,
+                 TM.MSG_REPLICA_DELTA):
         row = TM.make_row(kind, 0, 0)[None]
         with pytest.raises(NotImplementedError):
             TS.shard_round(state, bg, 0, row, none, cfg)
@@ -264,7 +265,7 @@ def test_c4_work_outside_the_slice_raises():
     for call in (lambda: cl.move(0, JT.KEY_MAX, 1),
                  lambda: cl.merge(0, 5, JT.KEY_MAX),
                  lambda: cl.replicate(0, JT.KEY_MAX, 1),
-                 lambda: cl.submit_range(0, 1, 9, 4),
+                 lambda: cl.drop_replica(0, JT.KEY_MAX, 1),
                  lambda: cl.join_shard(),
                  lambda: TSIM.Cluster(cfg, device="cpu", nemesis=object()),
                  lambda: TSIM.Cluster(cfg, device="cpu", durability="x")):
