@@ -16,9 +16,14 @@ which makes the script exit non-zero when it fails:
                and on the edge cases of the tests; ``paged_attention`` at
                the reference's three test shapes in f32 and bf16 (atol
                2e-5 / 2e-2, rtol 2e-2) and the serving shape, plus the
-               padding-page invariance. Device times (``torch.profiler``)
-               beside the bound and, for ``paged_attention``, beside the
-               nearest library call (gather + SDPA, timed only);
+               padding-page invariance, the edge cases of the tests
+               (``seq_len`` 0, one page, past the table; lengths on split
+               boundaries; ragged and one-page splits; S=64 with D=256;
+               11, 16 and 32 query heads per KV head) and bitwise
+               repeatability. Device times (``torch.profiler``, every
+               device operation of a call) beside the bound, the
+               wrapper's host time per call and, for ``paged_attention``,
+               the nearest library call (gather + SDPA, timed only);
   3. fig3a   — the paper's single-machine configuration (Fig. 3a) as
                ``benchmarks/run.py`` runs it, YCSB r50 mix: 1 shard,
                Balancer, block probe on. The final key set must equal the
@@ -36,8 +41,9 @@ which makes the script exit non-zero when it fails:
                static, rescan and range modes give identical greedy tokens,
                the index splits live and RANGE heals the snapshot, and
                ``paged_attention`` launches once per layer per decode step;
-               then a profiler window and the kernel path against the
-               gather path on 4 decode steps;
+               then a profiler window (busy share, device launches per
+               decode step) and the kernel path against the gather path on
+               4 decode steps;
   6. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
                entries) with ``SCALE_KEYS`` loaded keys and as many r50
                ops, checked against the oracle; then a window of rounds
@@ -135,23 +141,38 @@ def _device_events(prof):
             if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, iters: int = 100, name: str | None = None) -> float:
-    """Device time (ms) per call of ``fn``, from a ``torch.profiler`` trace
-    of ``iters`` calls: the summed duration of the kernels it ran, or of
-    the kernels whose name holds ``name``."""
+def device_ms(fn, iters: int = 100, name: str | None = None,
+              traces: int = 3) -> float:
+    """Device time (ms) per call of ``fn``: the summed duration of the
+    device operations it ran (or of those whose name holds ``name``) in a
+    ``torch.profiler`` trace of ``iters`` calls. A trace can lose events
+    (one smoke run on an H100 lost all of one trace and most of another),
+    so ``traces`` traces are taken, those with fewer events than the
+    fullest are dropped, and the median of the rest is returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in _device_events(prof)
-             if name is None or name in e.key)
-    if us <= 0:
-        fail(f"the profiler saw no device time for {name or 'the call'}")
+    runs = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in _device_events(prof)
+              if name is None or name in e.key]
+        runs.append((sum(e.count for e in ev),
+                     sum(e.self_device_time_total for e in ev)))
+    full = max(n for n, _ in runs)
+    kept = sorted(t for n, t in runs if n == full)
+    us = kept[(len(kept) - 1) // 2]
+    if full == 0 or us <= 0:
+        fail(f"the profiler saw no device time for {name or 'the call'} "
+             f"in {traces} traces")
+    if any(n < full for n, _ in runs):
+        log(f"[profile] {sum(n < full for n, _ in runs)} of {traces} "
+            f"traces of {name or 'a call'} lost device events")
     return us / 1e3 / iters
 
 
@@ -381,25 +402,63 @@ def _paged_library(q, kp, vp, pt, sl, ps):
                                           enable_gqa=True)[:, :, 0]
 
 
+def _paged_edge_cases(sms: int):
+    """The edge cases of ``tests/test_torch_paged_attention.py``, each as
+    (name, shape (B, H, KH, D, PP, S), lengths, dtypes)."""
+    from repro_torch.kernels import paged_attention as PA
+    cases = []
+    b, h, kh, d, pp, ps = 6, 8, 2, 32, 4, 8
+    cases.append(("edge_lengths", (b, h, kh, d, pp, ps),
+                  [0, 1, ps, ps + 1, pp * ps, pp * ps + 5], ("f32", "bf16")))
+    b, h, kh, d, pp, ps = 6, 8, 2, 64, 34, 16
+    _, n_split, per = PA.plan(b, h, kh, pp, sms)
+    check(n_split > 1, f"paged_attention: {pp} pages of {b} sequences "
+                       f"gave one split on {sms} SMs")
+    lens = []
+    for i in (1, n_split - 2):
+        start, end = i * per * ps, min((i + 1) * per, pp) * ps
+        lens += [start + 1, end, start]
+    cases.append(("split_boundaries", (b, h, kh, d, pp, ps), lens,
+                  ("f32", "bf16")))
+    b, h, kh, d, ps = 8, 14, 2, 64, 16
+    ragged = next(n for n in range(5, 200)
+                  if 1 < PA.plan(b, h, kh, n, sms)[1]
+                  and n % PA.plan(b, h, kh, n, sms)[1])
+    for pp in (ragged, 1):
+        cases.append((f"pages_{pp}", (b, h, kh, d, pp, ps),
+                      [0, 1, ps, pp * ps, pp * ps + 5, 3, ps + 1,
+                       max(pp * ps - 1, 1)], ("f32", "bf16")))
+    cases.append(("tiles_s64_d256", (3, 8, 2, 256, 3, 64), [1, 192, 100],
+                  ("f32", "bf16")))
+    for shape in ((4, 32, 1, 64, 6, 16), (3, 32, 2, 128, 5, 16),
+                  (2, 22, 2, 64, 3, 32)):
+        b, h, kh, d, pp, ps = shape
+        cases.append((f"heads_{h // kh}", shape,
+                      [0, 1, pp * ps, 17][:b] + [17] * max(b - 4, 0),
+                      ("f32", "bf16")))
+    return cases
+
+
 def phase_paged_kernel(serve_lens) -> dict:
     """``paged_attention`` against its plain twin on the card, at the
     reference's test shapes in f32 and bf16 and at the serving shape (with
-    the serving phase's prompt lengths); the padding-page invariance; and,
-    per shape, device times beside the bound and the library call."""
+    the serving phase's prompt lengths); the padding-page invariance; the
+    tests' edge cases; bitwise repeatability; and, per shape, the device
+    time of every device operation a call issues beside the bound, the
+    wrapper's host time per call and the library call."""
     import torch
     from repro_torch.kernels import ops as K
+    from repro_torch.kernels import paged_attention as PA
 
+    sms = PA.sm_count(torch.device("cuda"))
     shapes = [(f"{n}_{dt}", shp, dt) for n, shp in PAGED_SHAPES.items()
               for dt in ("f32", "bf16")]
     pages = -(-(SERVE["prompt_hi"] + SERVE["max_new"]) // SERVE["page_size"])
     shapes.append(("serving_f32", (SERVE["live"], 14, 2, 64, pages,
                                    SERVE["page_size"]), "f32"))
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
-    rec = {}
-    for name, (b, h, kh, d, pp, ps), dt in shapes:
-        lens = serve_lens if name.startswith("serving") else None
-        args = _paged_case(b, h, kh, d, pp, ps, dts[dt], seed=b * 100 + h,
-                           lens=lens)
+
+    def vs_twin(name, args, ps, dt):
         out = K.paged_attention(*args, page_size=ps)
         twin = K.paged_attention_ref(*args, page_size=ps)
         torch.cuda.synchronize()
@@ -408,13 +467,24 @@ def phase_paged_kernel(serve_lens) -> dict:
         ok = bool(torch.allclose(out.float(), twin.float(), **tol))
         check(ok, f"paged_attention {name}: kernel != twin, max err {err} "
                   f"(tolerance {tol})")
+        return err, tol, twin
+
+    rec = {}
+    for name, (b, h, kh, d, pp, ps), dt in shapes:
+        lens = serve_lens if name.startswith("serving") else None
+        args = _paged_case(b, h, kh, d, pp, ps, dts[dt], seed=b * 100 + h,
+                           lens=lens)
+        err, tol, twin = vs_twin(name, args, ps, dt)
         lib = _paged_library(*args, ps)
         lib_err = float((lib.float() - twin.float()).abs().max())
-        ms = device_ms(lambda: K.paged_attention(*args, page_size=ps),
-                       name="paged_attention_kernel")
+        # every device operation of the wrapper's call, not only the
+        # kernel: a memset or a second kernel would count here
+        ms = device_ms(lambda: K.paged_attention(*args, page_size=ps))
+        call_ms = time_cuda(lambda: K.paged_attention(*args, page_size=ps))
         plain_ms = device_ms(lambda: K.paged_attention_ref(*args,
                                                            page_size=ps))
         library_ms = device_ms(lambda: _paged_library(*args, ps))
+        gb, n_split, per = PA.plan(b, h, kh, pp, sms)
         # least work: each live token's K and V rows once, q, the output,
         # the table and the lengths; 4*H*D flops per live token (q.k and
         # p*v), at the rate of the inputs' type
@@ -426,19 +496,43 @@ def phase_paged_kernel(serve_lens) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / (CORE_OPS_PER_S if dt == "f32"
                         else BF16_OPS_PER_S) * 1e3
-        rec[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         max_abs_err=err, library_err=lib_err,
-                         bound_ms=max(t_bytes, t_ops),
+        rec[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, max_abs_err=err,
+                         library_err=lib_err, bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations", shape=[b, h, kh, d, pp, ps],
-                         dtype=dt)
+                         dtype=dt, splits=n_split, split_pages=per)
         log(f"[kernels] paged_attention {name} B={b} H={h} KH={kh} D={d} "
             f"PP={pp} S={ps}: max |kernel - twin| {err:.3e} (tolerance "
-            f"{tol}); kernel {ms * 1e3:.3f} us on the device per launch, "
-            f"bound {rec[name]['bound_ms'] * 1e3:.4f} us "
-            f"({rec[name]['bound_by']}); twin {plain_ms * 1e3:.3f} us; "
+            f"{tol}); {n_split} splits of {per} pages "
+            f"({b * h // gb * n_split} blocks on {sms} SMs); "
+            f"{ms * 1e3:.3f} us on the device per "
+            f"call, bound {rec[name]['bound_ms'] * 1e3:.4f} us "
+            f"({rec[name]['bound_by']}); one wrapper call back to back "
+            f"{call_ms * 1e3:.2f} us; twin {plain_ms * 1e3:.3f} us; "
             f"gather + SDPA {library_ms * 1e3:.3f} us (max |lib - twin| "
             f"{lib_err:.3e})")
+
+    # the tests' edge cases against the twin
+    for name, (b, h, kh, d, pp, ps), lens, dtypes in _paged_edge_cases(sms):
+        for dt in dtypes:
+            args = _paged_case(b, h, kh, d, pp, ps, dts[dt], seed=pp,
+                               lens=lens)
+            err, tol, _ = vs_twin(f"{name}_{dt}", args, ps, dt)
+            log(f"[kernels] paged_attention {name}_{dt} B={b} H={h} KH={kh} "
+                f"D={d} PP={pp} S={ps} lens {lens}: max |kernel - twin| "
+                f"{err:.3e} (tolerance {tol})")
+
+    # the splits merge in a fixed order: repeated calls are bitwise equal
+    b, h, kh, d, pp, ps = rec["serving_f32"]["shape"]
+    args = _paged_case(b, h, kh, d, pp, ps, torch.float32, seed=1,
+                       lens=serve_lens)
+    outs = [K.paged_attention(*args, page_size=ps) for _ in range(3)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(outs[0], o) for o in outs[1:]),
+          "paged_attention: repeated calls on the same inputs differ")
+    log("[kernels] paged_attention: 3 calls at the serving shape are "
+        "bitwise equal")
 
     # positions at or past seq_len never count: scrambling the fully
     # masked tail pages leaves the output unchanged
@@ -861,23 +955,31 @@ def phase_serving() -> dict:
           "serving range: no RANGE segment was served by the pre-pass")
 
     eng = static["eng"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = _device_events(prof)
+    # two windows of 2 decode steps; the one whose trace holds more device
+    # events is kept (a trace can lose events)
+    windows = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = _device_events(prof)
+        windows.append((sum(e.count for e in ev), wall, ev))
+    _, wall, ev = max(windows, key=lambda w: w[0])
     busy = sum(e.self_device_time_total for e in ev) / 1e6
     pa = sum(e.self_device_time_total for e in ev
              if "paged_attention_kernel" in e.key) / 1e6
+    per_step = sum(e.count for e in ev) / 2
     top = sorted(ev, key=lambda e: e.self_device_time_total,
                  reverse=True)[:5]
     log(f"[serving] profiler, 2 decode steps: wall {wall * 1e3:.2f} ms, "
         f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.2f}% of "
-        f"wall), paged_attention {pa * 1e3:.3f} ms; top: " + "; ".join(
+        f"wall), paged_attention {pa * 1e3:.3f} ms; {per_step:.0f} device "
+        f"launches per decode step; top: " + "; ".join(
             f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
             for e in top))
     worst = _kernel_vs_gather(eng)
@@ -902,7 +1004,8 @@ def phase_serving() -> dict:
     return dict(runs={m: {k: v for k, v in r.items()
                           if k not in ("eng", "reqs")}
                       for m, r in runs.items()},
-                busy_share=busy / wall, lens=lens, kvg=worst)
+                busy_share=busy / wall, launches_per_step=per_step,
+                lens=lens, kvg=worst)
 
 
 # ------------------------------------------------------------------- main
@@ -946,7 +1049,9 @@ def main() -> None:
         max_abs_err=p["max_abs_err"],
         ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
         bound_by=p["bound_by"], library_ms=p["library_ms"],
-        shape=p["shape"], dtype=p["dtype"],
+        shape=p["shape"], dtype=p["dtype"], call_ms=p["call_ms"],
+        splits=p["splits"], split_pages=p["split_pages"],
+        serving_launches_per_step=serving["launches_per_step"],
         launches_all_modes=sum(r["launches"]
                                for r in serving["runs"].values()),
         ms_by_shape={n: r["ms"] for n, r in prec.items()})]
