@@ -12,8 +12,11 @@ which makes the script exit non-zero when it fails:
                ``nvcc`` per source, all at once (``sm_90a``; into
                ``build/kernels/``);
   2. kernels — each kernel against its plain PyTorch version on the card:
-               ``hybrid_search`` bit for bit at the fig3a and scale shapes
-               and on the edge cases of the tests; ``paged_attention`` at
+               ``hybrid_search`` bit for bit at the fig3a and scale shapes,
+               on the edge cases of the tests (the grid ``HS_EDGE_*`` of
+               ``hs_edge_case``: ties, pads, the full-block-all-less row,
+               sentinel queries, both row sweeps) and repeatably, with 4
+               against 8 warps per block timed; ``paged_attention`` at
                the reference's three test shapes in f32 and bf16 (atol
                2e-5 / 2e-2, rtol 2e-2) and the serving shape, plus the
                padding-page invariance, the edge cases of the tests
@@ -30,7 +33,9 @@ which makes the script exit non-zero when it fails:
                sequential oracle's, and the protocol counts must equal the
                JAX reference's (recorded from a run of the reference with
                the same seeds and code path). The kernel's launch count
-               shows the main path went through it. Then a profiler
+               shows the main path went through it, and the pre-pass's
+               pointer walk must take ``FIG3A_WALK_STEPS`` steps (the
+               lanes the kernel answers skip it). Then a profiler
                window (the device's busy share) and a second run under
                the per-phase timer (the round's breakdown);
   4. client  — a few hundred ops through ``DiLiClient`` futures, each
@@ -47,7 +52,8 @@ which makes the script exit non-zero when it fails:
   6. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
                entries) with ``SCALE_KEYS`` loaded keys and as many r50
                ops, checked against the oracle; then a window of rounds
-               under the per-phase timer and a profiler window.
+               under the per-phase timer and a profiler window. Both DiLi
+               phases log the walk's steps and its milliseconds per step.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -72,6 +78,12 @@ FIG3A_EXPECTED = dict(rounds=107, load_rounds=34, settle_rounds=44,
                       fast_hits=1865, mut_hits=3228, blk_hits=4235,
                       sublists=29, keys=2218)
 
+# steps of the pre-pass's pointer walk (traverse.probe_batch.steps) over
+# the port's fig3a run, load + settle + mix: the lanes the hybrid_search
+# kernel answers skip the walk. Computed on the CPU by
+# tests/test_torch_fig3a.py; with every lane walking it was 10,559
+FIG3A_WALK_STEPS = 5287
+
 # Keys loaded (and r50 ops) in the scale phase: half of the 2**16 the
 # capacities were sized for. With 2**16 the whole script took 1120 s of
 # its 1200 s limit on one H100 host, the round being host-bound
@@ -87,6 +99,13 @@ BF16_OPS_PER_S = 989e12
 
 # the kernels of the port's paths, each built from csrc/<name>.cu
 KERNELS = ("hybrid_search", "paged_attention")
+
+# hybrid_search's edge grid (hs_edge_case), also the gpu tests': registry
+# sizes around the 32-ary search's steps, row widths on both sweeps (C %
+# 4 != 0 takes the scalar one), batch sizes around a warp and a block
+HS_EDGE_M = (1, 2, 31, 32, 33, 1025, 16384)
+HS_EDGE_C = (1, 3, 31, 32, 33, 160, 161)
+HS_EDGE_B = (1, 31, 128, 4096)
 
 # the serving phase (benchmarks/run.py::serving at the full width of
 # Qwen2-0.5B, one DiLi shard): live requests, their prompt lengths and
@@ -227,6 +246,16 @@ def breakdown(timer, rounds: int) -> dict:
             for k, v in sorted(timer.seconds.items())}
 
 
+def walk_ms_per_step(timer, steps: int, rounds: int) -> str:
+    """The pointer walk's timed milliseconds per walk step, with the steps
+    behind them (the walk's calls also cost time when they take no
+    step)."""
+    ms = 1e3 * timer.seconds.get("probe_batch", 0.0)
+    return (f"{ms / max(steps, 1):.4f} ms per walk step ({steps} steps, "
+            f"{steps / max(rounds, 1):.2f} per round, "
+            f"{timer.calls.get('probe_batch', 0)} calls)")
+
+
 # ------------------------------------------------------------------ phases
 
 def phase_build() -> None:
@@ -278,41 +307,124 @@ def _queries(rng, blocks, b):
     return q
 
 
+def hs_edge_case(m: int, c: int, b: int, seed: int = 0):
+    """``hybrid_search`` inputs at the edges of the kernel's design, as
+    numpy: ``keymin`` sorted with ties and INT32_MAX pads (the last quarter
+    of the entries); rows sorted, each filled to a random count and padded
+    with INT32_MAX, row 0 full with every key below ``keymin[1]`` (the
+    full-block-all-less row, which a query of ``keymin[1]`` reaches); ``b``
+    queries: the sentinels INT32_MAX, INT32_MAX - 1 and INT32_MIN first,
+    then every ``keymin`` value and its neighbours, row keys and their
+    neighbours, and random values, shuffled."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    imin, imax = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    live = max(1, m - m // 4)
+    # ties: the live keymins are drawn from a pool a third their number
+    pool = rng.integers(-10 * live * c, 10 * live * c, max(1, live // 3))
+    km = np.sort(rng.choice(pool, live)).astype(np.int64)
+    if live > 1:
+        km[0] = km[1] - 2 * c - 2
+    nxt = np.append(km[1:], km[-1] + 4 * c + 4)
+    gap = np.maximum(nxt - km - 1, 1)
+    rows = km[:, None] + 1 + np.sort(
+        (rng.random((live, c)) * gap[:, None]).astype(np.int64), axis=1)
+    fill = rng.integers(0, c + 1, live)
+    fill[0] = c
+    rows = np.where(np.arange(c)[None, :] < fill[:, None], rows, imax)
+    keymin = np.full(m, imax, np.int64)
+    keymin[:live] = km
+    blocks = np.full((m, c), imax, np.int64)
+    blocks[:live] = rows
+    special = [imax, imax - 1, imin]
+    near = np.concatenate([km - 1, km, km + 1])
+    keys = rows[rows != imax]
+    near_rows = rng.choice(keys, min(keys.size, 2 * b)) + \
+        rng.integers(-1, 2, min(keys.size, 2 * b))
+    rand = rng.integers(imin, imax, b, dtype=np.int64)
+    q = np.concatenate([near, near_rows, rand])
+    q = rng.permutation(q)[:max(b - len(special), 0)]
+    q = np.concatenate([special, q])[:b]
+    q = np.clip(q, imin, imax)
+    return (keymin.astype(np.int32), blocks.astype(np.int32),
+            q.astype(np.int32))
+
+
 def phase_kernels() -> dict:
-    """Kernel vs plain on the card; returns the timing record."""
+    """``hybrid_search`` against its plain twin on the card, bit for bit:
+    the tests' hand-made cases, the edge grid (``hs_edge_case`` at every
+    M, C and B of ``HS_EDGE_*``), rows off a 16-byte boundary, and the
+    fig3a and scale shapes; repeated calls bitwise equal; a call issues
+    the kernel and no other device operation. Then, per shape, the device
+    time beside the bound, the wrapper's host time per call and the twin's
+    time, and at the fig3a and scale shapes 4 against 8 warps per block.
+    Returns the timing record."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import hybrid_search as HS
     from repro_torch.kernels import ops as K
 
     dev = torch.device("cuda")
     imax = np.iinfo(np.int32).max
 
-    def run_case(keymin, blocks, q):
-        a = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-             for x in (keymin, blocks, q)]
-        slot, found = K.hybrid_search(*a)
+    def on_card(*xs):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in xs]
+
+    def vs_twin(a, what):
+        outs = [K.hybrid_search(*a) for _ in range(3)]
         slot_r, found_r = K.hybrid_search_ref(*a)
         torch.cuda.synchronize()
+        slot, found = outs[0]
         err = int((slot.long() - slot_r.long()).abs().max()) \
             if slot.numel() else 0
         err = max(err, int((found != found_r).sum()))
-        return err, a
+        check(err == 0, f"hybrid_search {what}: kernel != plain, max err "
+                        f"{err}")
+        check(all(torch.equal(slot, s) and torch.equal(found, f)
+                  for s, f in outs[1:]),
+              f"hybrid_search {what}: repeated calls differ")
+        return err
 
-    # the edge cases of the tests
+    # the hand-made cases of the tests
     c = 8
     keymin = np.asarray([-1, 50], np.int32)
     blocks = np.full((2, c), imax, np.int32)
     blocks[0] = np.arange(10, 10 + c)
     blocks[1, :3] = [60, 70, 80]
-    err, _ = run_case(keymin, blocks,
-                      np.asarray([49, 18, 75, 60, imax, 10], np.int32))
-    check(err == 0, f"hybrid_search full-block/sentinel case: err {err}")
+    vs_twin(on_card(keymin, blocks,
+                    np.asarray([49, 18, 75, 60, imax, 10], np.int32)),
+            "full-block/sentinel case")
     rng = np.random.default_rng(0)
     for b in (3, 100, 129):
         km, bl = _registry(rng, 8, 8, 32)
-        err, _ = run_case(km, bl, rng.integers(-5, 400, b).astype(np.int32))
-        check(err == 0, f"hybrid_search ragged B={b}: err {err}")
+        vs_twin(on_card(km, bl, rng.integers(-5, 400, b).astype(np.int32)),
+                f"ragged B={b}")
+
+    # the edge grid of the gpu tests
+    before = K.hybrid_search.launches
+    for m in HS_EDGE_M:
+        for c in HS_EDGE_C:
+            km, bl, q = on_card(*hs_edge_case(m, c, max(HS_EDGE_B),
+                                              seed=m + c))
+            for b in HS_EDGE_B:
+                vs_twin((km, bl, q[:b]), f"edge M={m} C={c} B={b}")
+    n_edge = len(HS_EDGE_M) * len(HS_EDGE_C) * len(HS_EDGE_B)
+    check(K.hybrid_search.launches == before + 3 * n_edge,
+          f"hybrid_search: {K.hybrid_search.launches - before} launches "
+          f"counted for {3 * n_edge} calls")
+    km, bl, q = hs_edge_case(256, 160, 4096, seed=7)
+    flat = torch.empty(256 * 160 + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(256, 160)
+    shifted.copy_(torch.from_numpy(bl).to(dev))
+    vs_twin((on_card(km)[0], shifted, on_card(q)[0]),
+            "rows off a 16-byte boundary (scalar sweep)")
+    log(f"[kernels] hybrid_search: bit-identical to the twin on the tests' "
+        f"cases and the edge grid (M {list(HS_EDGE_M)} x C "
+        f"{list(HS_EDGE_C)} x B {list(HS_EDGE_B)}: ties, INT32_MAX pads, "
+        f"the full-block-all-less row, sentinel queries) and on rows off a "
+        f"16-byte boundary; 3 calls bitwise equal each")
 
     shapes = {"fig3a": (200, 256, 160, 128), "scale_path": (8000, 16384, 160,
                                                             128),
@@ -321,22 +433,30 @@ def phase_kernels() -> dict:
     for name, (m_live, m, c, b) in shapes.items():
         km, bl = _registry(rng, m_live, m, c)
         q = _queries(rng, bl, b)
-        err, args = run_case(km, bl, q)
-        check(err == 0, f"hybrid_search {name} (M={m}, C={c}, B={b}): "
-                        f"kernel != plain, max err {err}")
-        ms = device_ms(lambda: K.hybrid_search(*args),
-                       name="hybrid_search_kernel")
+        args = on_card(km, bl, q)
+        err = vs_twin(args, f"{name} (M={m}, C={c}, B={b})")
+        # the wrapper's call is the kernel and nothing else on the device
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                K.hybrid_search(*args)
+            torch.cuda.synchronize()
+        ev = _device_events(prof)
+        check(all("hybrid_search_kernel" in e.key for e in ev),
+              f"hybrid_search {name}: a call ran other device work: "
+              f"{[e.key for e in ev]}")
+        # every device operation of the wrapper's call
+        ms = device_ms(lambda: K.hybrid_search(*args))
         plain_ms = device_ms(lambda: K.hybrid_search_ref(*args))
         call_ms = time_cuda(lambda: K.hybrid_search(*args))
         plain_call_ms = time_cuda(lambda: K.hybrid_search_ref(*args),
                                   iters=50)
         # least work: each query, the row it reads and the outputs once,
-        # plus the registry column; ops: the search steps and the row
-        # compares (two per key)
+        # plus the registry column; ops: a binary search's compares and
+        # the row compares (two per key)
         entry = np.clip(np.searchsorted(km, q, side="left") - 1, 0, m - 1)
         rows = np.unique(entry).size
         nbytes = m * 4 + rows * c * 4 + b * 4 + b * 5
-        nops = b * (HS.levels(m) + 2 * c)
+        nops = b * ((max(m, 2) - 1).bit_length() + 2 * c)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / CORE_OPS_PER_S * 1e3
         rec[name] = dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms,
@@ -344,12 +464,27 @@ def phase_kernels() -> dict:
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations", shape=[m, c, b])
+        if name != "scale_path":
+            # warps per block, in turns: 4, 8, 8, 4
+            by_w = {4: [], 8: []}
+            for w in (4, 8, 8, 4):
+                by_w[w].append(device_ms(
+                    lambda: HS.launch(*args, warps=w),
+                    name="hybrid_search_kernel"))
+            rec[name]["ms_by_warps"] = {w: statistics.mean(v)
+                                        for w, v in by_w.items()}
         log(f"[kernels] hybrid_search {name} M={m} C={c} B={b}: kernel "
-            f"{ms * 1e3:.3f} us on the device per launch, bound "
-            f"{rec[name]['bound_ms'] * 1e3:.4f} us ({rec[name]['bound_by']});"
-            f" one wrapper call back to back {call_ms * 1e3:.2f} us; plain "
-            f"version (reference only) {plain_ms * 1e3:.3f} us on the device, "
-            f"{plain_call_ms * 1e3:.2f} us per call; bit-identical")
+            f"{ms * 1e3:.3f} us on the device per call (the kernel alone), "
+            f"bound {rec[name]['bound_ms'] * 1e3:.4f} us "
+            f"({rec[name]['bound_by']}); one wrapper call back to back "
+            f"{call_ms * 1e3:.2f} us; plain version (reference only) "
+            f"{plain_ms * 1e3:.3f} us on the device, "
+            f"{plain_call_ms * 1e3:.2f} us per call; bit-identical"
+            + ("" if name == "scale_path" else
+               "; warps per block " + ", ".join(
+                   f"{w}: {t * 1e3:.3f} us" for w, t in
+                   rec[name]["ms_by_warps"].items())
+               + f" (the wrapper uses {HS.WARPS_PER_BLOCK})"))
     return rec
 
 
@@ -558,6 +693,7 @@ def _run_fig3a(timer):
     from repro_torch.api import LocalBackend
     from repro_torch.core.balancer import Balancer
     from repro_torch.core.oracle import OracleList
+    from repro_torch.core.traverse import probe_batch
     from repro_torch.data.ycsb import load_phase, mixed_phase
     from repro_torch.kernels import ops as K
 
@@ -566,18 +702,21 @@ def _run_fig3a(timer):
     backend = LocalBackend(bench_cfg(), device="cuda", timer=timer)
     bal = Balancer(backend)
     K.hybrid_search.launches = 0
+    probe_batch.steps = 0
     drive_backend(backend, load_kinds, load_keys, 64, balancer=bal)
     load_rounds = backend.stats["rounds"]
     settle(backend, bal)
     settle_rounds = backend.stats["rounds"]
     if timer is not None:
         timer.reset()
+    mix_steps0 = probe_batch.steps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     drive_backend(backend, kinds, keys, 64, balancer=bal)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = K.hybrid_search.launches
+    walk_steps = probe_batch.steps
 
     oracle = OracleList()
     oracle.apply_batch(load_kinds.tolist(), load_keys.tolist())
@@ -596,9 +735,13 @@ def _run_fig3a(timer):
     check(launches > 0 and counts["blk_hits"] > 0,
           f"fig3a: hybrid_search launched {launches} times, blk_hits "
           f"{counts['blk_hits']}: the main path did not reach the kernel")
+    check(walk_steps == FIG3A_WALK_STEPS < 10559,
+          f"fig3a: the pointer walk took {walk_steps} steps, not the "
+          f"CPU's {FIG3A_WALK_STEPS}")
     mix_rounds = st["rounds"] - settle_rounds
     return dict(ops_per_s=len(kinds) / dt, seconds=dt,
                 mix_rounds=mix_rounds, launches=launches, counts=counts,
+                walk_steps=walk_steps, mix_walk_steps=walk_steps - mix_steps0,
                 backend=backend, kinds=kinds, keys=keys)
 
 
@@ -645,7 +788,9 @@ def phase_fig3a() -> dict:
         f"mix ({plain['mix_rounds']} rounds, {plain['seconds']:.3f} s, "
         f"{1e3 * plain['seconds'] / plain['mix_rounds']:.3f} ms/round); "
         f"counts equal the reference: {plain['counts']}; hybrid_search "
-        f"launches over load+settle+mix: {plain['launches']}")
+        f"launches over load+settle+mix: {plain['launches']}; walk steps "
+        f"{plain['walk_steps']} (= FIG3A_WALK_STEPS), "
+        f"{plain['mix_walk_steps']} of them in the mix")
     prof = profile_rounds(plain.pop("backend"), plain.pop("kinds"),
                           plain.pop("keys"))
     timer = PhaseTimer("cuda")
@@ -653,9 +798,12 @@ def phase_fig3a() -> dict:
     for k in ("backend", "kinds", "keys"):
         timed.pop(k)
     bd = breakdown(timer, timed["mix_rounds"])
+    per_step = walk_ms_per_step(timer, timed["mix_walk_steps"],
+                                timed["mix_rounds"])
     log(f"[fig3a] with the phase timer: {timed['ops_per_s']:.1f} ops/s; "
         f"per-round ms over the mix: {json.dumps(bd)}; round "
-        f"{1e3 * timed['seconds'] / timed['mix_rounds']:.3f} ms")
+        f"{1e3 * timed['seconds'] / timed['mix_rounds']:.3f} ms; "
+        f"probe_batch {per_step}")
     return dict(plain=plain, timed=timed, breakdown=bd, profile=prof)
 
 
@@ -697,6 +845,7 @@ def phase_scale(n_keys: int, timed_rounds: int = 64) -> dict:
     from repro_torch.api import LocalBackend
     from repro_torch.core.balancer import Balancer
     from repro_torch.core.oracle import OracleList
+    from repro_torch.core.traverse import probe_batch
     from repro_torch.data.ycsb import load_phase, mixed_phase
     from repro_torch.kernels import ops as K
     from repro_torch.timing import PhaseTimer
@@ -709,18 +858,21 @@ def phase_scale(n_keys: int, timed_rounds: int = 64) -> dict:
     backend = LocalBackend(cfg, device="cuda")
     bal = Balancer(backend)
     K.hybrid_search.launches = 0
+    probe_batch.steps = 0
     t0 = time.perf_counter()
     drive_backend(backend, load_kinds, load_keys, 64, balancer=bal)
     t_load = time.perf_counter() - t0
     load_rounds = backend.stats["rounds"]
     settle(backend, bal)
     settle_rounds = backend.stats["rounds"]
+    mix_steps0 = probe_batch.steps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     drive_backend(backend, kinds, keys, 64, balancer=bal)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = K.hybrid_search.launches
+    walk_steps = probe_batch.steps
 
     oracle = OracleList()
     oracle.apply_batch(load_kinds.tolist(), load_keys.tolist())
@@ -741,12 +893,13 @@ def phase_scale(n_keys: int, timed_rounds: int = 64) -> dict:
         f"{len(kinds) / dt:.1f} ops/s ({mix_rounds} rounds, {dt:.1f} s, "
         f"{1e3 * dt / mix_rounds:.3f} ms/round); fast_hits "
         f"{st['fast_hits']} mut_hits {st['mut_hits']} blk_hits "
-        f"{st['blk_hits']}; launches {launches}")
+        f"{st['blk_hits']}; launches {launches}; walk steps {walk_steps} "
+        f"({walk_steps - mix_steps0} in the mix)")
 
     # the breakdown, from a window after the measured mix
     timer = PhaseTimer("cuda")
     backend.cluster.timer = timer
-    r0 = backend.stats["rounds"]
+    r0, s0 = backend.stats["rounds"], probe_batch.steps
     n = 64 * timed_rounds
     t0 = time.perf_counter()
     drive_backend(backend, kinds[:n], keys[:n], 64, balancer=bal)
@@ -757,9 +910,11 @@ def phase_scale(n_keys: int, timed_rounds: int = 64) -> dict:
     bd = breakdown(timer, rounds_t)
     log(f"[scale] with the phase timer, {rounds_t} more r50 rounds: "
         f"{n / dt_t:.1f} ops/s, round {1e3 * dt_t / rounds_t:.3f} ms; "
-        f"per-round ms: {json.dumps(bd)}")
+        f"per-round ms: {json.dumps(bd)}; probe_batch "
+        f"{walk_ms_per_step(timer, probe_batch.steps - s0, rounds_t)}")
     profile_rounds(backend, kinds, keys)
-    return dict(ops_per_s=len(kinds) / dt, launches=launches)
+    return dict(ops_per_s=len(kinds) / dt, launches=launches,
+                walk_steps=walk_steps)
 
 
 def serve_requests(vocab: int):
@@ -1040,8 +1195,13 @@ def main() -> None:
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None,
         shape=k["shape"], call_ms=k["call_ms"],
-        ms_scale_path=krec["scale_path"]["ms"],
-        launches_scale=scale["launches"]), dict(
+        ms_by_warps=k["ms_by_warps"],
+        ms_scale_path=krec["scale_path"]["ms"], ms_scale=krec["scale"]["ms"],
+        call_ms_scale=krec["scale"]["call_ms"],
+        bound_ms_scale=krec["scale"]["bound_ms"],
+        launches_scale=scale["launches"],
+        walk_steps_fig3a=f3["plain"]["walk_steps"],
+        walk_steps_scale=scale["walk_steps"]), dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:29",

@@ -4,9 +4,10 @@ its eligible INSERT/REMOVE rows in one vectorized sweep on the device
 
   1. one vectorized registry binary search over all op keys
      (``ops.resolve_route``),
-  2. one bounded lock-step walk (``traverse.probe_batch``) — or, with
-     ``block_probe``, the packed-block ``hybrid_search`` kernel — giving
-     each lane's presence and Harris window ``(left, right)``,
+  2. with ``block_probe``, the packed-block ``hybrid_search`` kernel, then
+     one bounded lock-step walk (``traverse.probe_batch``) of the lanes the
+     kernel did not answer, giving each lane's presence and Harris window
+     ``(left, right)``,
   3. a same-key group fold: lanes sorted by (key, row order), a segmented
      scan replays each key group's serial semantics,
   4. a conflict screen bouncing every group the static schedule cannot
@@ -32,7 +33,7 @@ from . import blocks as BL
 from . import messages as M
 from . import refs
 from .ops import pool_slot, resolve_route
-from .traverse import ProbeOut, probe_batch
+from .traverse import probe_batch
 from .types import (DiLiConfig, OP_FIND, OP_INSERT, OP_REMOVE, RES_FALSE,
                     RES_TRUE, ShardState)
 
@@ -169,22 +170,23 @@ def round_prepass(state: ShardState, rows, rows_np, me, cfg: DiLiConfig,
     op_k = op[sel]
     ent_k = rt.entry[sel]
     t = timer if timer is not None else (lambda name: contextlib.nullcontext())
-    with t("probe_batch"):
-        pr = probe_batch(state, rt.head_idx[sel], key_k, me, bound)
 
-    # packed-block stage-2 probe (DESIGN.md §12): lanes whose entry has a
-    # valid block are answered by the hybrid-search kernel's window
+    # packed-block stage-2 probe (DESIGN.md §12), ahead of the walk: lanes
+    # whose entry has a valid block are answered by the hybrid-search
+    # kernel's window and skip the walk
     use_blk = torch.zeros((k,), dtype=torch.bool, device=dev)
     if cfg.block_probe:
         with t("hybrid_search"):
             b = BL.probe_blocks(state, ent_k, rt.sh_ref[sel], key_k, me, cfg)
         b_ok, b_present, b_left, b_right = b
         use_blk = cand_k & b_ok
-        pr = ProbeOut(
-            ok=pr.ok | use_blk,
-            present=torch.where(use_blk, b_present, pr.present),
-            left=torch.where(use_blk, b_left, pr.left),
-            right=torch.where(use_blk, b_right, pr.right))
+    with t("probe_batch"):
+        pr = probe_batch(state, rt.head_idx[sel], key_k, me, bound,
+                         start_done=use_blk)
+    if cfg.block_probe:
+        pr = pr._replace(present=torch.where(use_blk, b_present, pr.present),
+                         left=torch.where(use_blk, b_left, pr.left),
+                         right=torch.where(use_blk, b_right, pr.right))
 
     pool = state.pool
     cap = pool.key.shape[0]

@@ -3,7 +3,7 @@
 ``probe_batch`` is the read-only lock-step walk of the batched pre-passes,
 on the device: one vectorized step advances every lane. Its early exit
 (stop once no lane is still walking) is read on the host, which costs one
-device sync per step.
+device sync per step; ``probe_batch.steps`` counts the steps taken.
 
 ``search`` is the serial pass's exact traversal with Harris delinking, on
 the host working copy (``core/host.py``).
@@ -36,12 +36,15 @@ class ProbeOut(NamedTuple):
     right: torch.Tensor    # int32[B] pool idx of the stop node
 
 
-def probe_batch(state: ShardState, head_idx, key, me, bound: int) -> ProbeOut:
+def probe_batch(state: ShardState, head_idx, key, me, bound: int,
+                start_done=None) -> ProbeOut:
     """Read-only batched traversal for the batched fast-paths (DESIGN.md
     §4/§4b). A lane is clean only while its walk touches exclusively
     local, unmarked, non-moving, non-switched nodes and terminates within
     ``bound`` steps; ``(left, right)`` is the Harris window it stopped at.
-    NB the walk starts at ``head.nxt``: callers re-check a SubHead left."""
+    NB the walk starts at ``head.nxt``: callers re-check a SubHead left.
+    Lanes set in the bool mask ``start_done`` are not walked: they come
+    back ok, absent, with the window (head, head)."""
     pool = state.pool
     n = pool.key.shape[0]
     nc = state.stct.shape[0]
@@ -53,7 +56,8 @@ def probe_batch(state: ShardState, head_idx, key, me, bound: int) -> ProbeOut:
     prev = head_idx
     right = head_idx
     ok = torch.ones(shape, dtype=torch.bool, device=dev)
-    done = torch.zeros(shape, dtype=torch.bool, device=dev)
+    done = torch.zeros(shape, dtype=torch.bool, device=dev) \
+        if start_done is None else start_done
     present = torch.zeros(shape, dtype=torch.bool, device=dev)
 
     # early-exit sweep: the fixed cost is the *longest* live lane
@@ -87,7 +91,11 @@ def probe_batch(state: ShardState, head_idx, key, me, bound: int) -> ProbeOut:
         prev = torch.where(advance, idx, prev)
         curr = torch.where(advance, curr_nxt, curr)
         i += 1
+    probe_batch.steps += i
     return ProbeOut(ok=ok & done, present=present, left=prev, right=right)
+
+
+probe_batch.steps = 0
 
 
 class SearchOut(NamedTuple):

@@ -4,11 +4,15 @@ The source is built at first use by ``kernels/build.py`` (``nvcc`` for
 ``sm_90a`` into a plain-C library under ``build/kernels/``, loaded with
 ``ctypes``). Nothing here runs at import: the CPU tests import this module
 on machines without ``nvcc`` or a card.
+
+A call is mostly host time (the kernel takes a few microseconds), so the
+launch path is kept short: the ctypes function is looked up once per
+process, both outputs come from one allocation, and the current stream is
+read as a raw handle.
 """
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -18,6 +22,12 @@ NAME = "hybrid_search"
 _SYMBOLS = {"hybrid_search_launch": (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     ctypes.c_int)}
+# warps (queries) per block: 4 spreads B = 128 over 32 blocks, where 8
+# give 16, and was the faster of the two at that shape on an H100
+# (csrc/hybrid_search.cu's note); the kernel takes 1..8
+WARPS_PER_BLOCK = 4
+
+_launch_fn = None
 
 
 def build(verbose: bool = False):
@@ -25,24 +35,29 @@ def build(verbose: bool = False):
     return B.build(NAME, verbose)
 
 
-def levels(m: int) -> int:
-    """Binary-search steps over M registry entries (as the TPU kernel)."""
-    return max(1, math.ceil(math.log2(max(m, 2))))
+def _fn():
+    global _launch_fn
+    if _launch_fn is None:
+        _launch_fn = B.load(NAME, _SYMBOLS).hybrid_search_launch
+    return _launch_fn
 
 
 def launch(keymin: torch.Tensor, blocks: torch.Tensor,
-           queries: torch.Tensor):
+           queries: torch.Tensor, *, warps: int = WARPS_PER_BLOCK):
     """Launch on the current CUDA stream. Inputs are validated by the
-    public wrapper (``kernels/ops.py``); outputs are allocated here."""
-    lib = B.load(NAME, _SYMBOLS)
+    public wrapper (``kernels/ops.py``); the outputs are allocated here, as
+    one buffer: ``slot`` int32[B] in its first 4*B bytes, ``found``
+    bool[B] in the last B. ``warps`` overrides the warps per block (for
+    measurement)."""
     m, c = blocks.shape
     b = queries.shape[0]
-    slot = torch.empty((b,), dtype=torch.int32, device=queries.device)
-    found = torch.empty((b,), dtype=torch.bool, device=queries.device)
-    stream = torch.cuda.current_stream(queries.device).cuda_stream
-    err = lib.hybrid_search_launch(
-        keymin.data_ptr(), blocks.data_ptr(), queries.data_ptr(),
-        slot.data_ptr(), found.data_ptr(), m, c, b, levels(m), stream)
+    dev = queries.device
+    out = torch.empty((5 * b,), dtype=torch.uint8, device=dev)
+    slot = out[:4 * b].view(torch.int32)
+    found = out[4 * b:].view(torch.bool)
+    err = _fn()(keymin.data_ptr(), blocks.data_ptr(), queries.data_ptr(),
+                out.data_ptr(), out.data_ptr() + 4 * b, m, c, b, warps,
+                torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"hybrid_search launch failed: cudaError {err}")
     return slot, found

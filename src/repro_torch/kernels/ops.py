@@ -14,49 +14,52 @@ import torch
 from . import ref as ref_ops
 
 _INT32_MAX = torch.iinfo(torch.int32).max
+_I32 = torch.int32
 
 
 def _check(keymin, blocks, queries) -> None:
+    dev = getattr(queries, "device", None)
     for name, t, dim in (("keymin", keymin, 1), ("blocks", blocks, 2),
                          ("queries", queries, 1)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"hybrid_search: {name} must be a tensor")
-        if t.dtype != torch.int32:
+        if t.dtype is not _I32:
             raise TypeError(f"hybrid_search: {name} must be int32, "
                             f"got {t.dtype}")
-        if t.dim() != dim:
+        if t.ndim != dim:
             raise ValueError(f"hybrid_search: {name} must be {dim}-D, "
                              f"got shape {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"hybrid_search: {name} must be contiguous")
-        if t.device != queries.device:
+        if t.device != dev:
             raise ValueError("hybrid_search: inputs on different devices "
-                             f"({t.device} vs {queries.device})")
-    if keymin.shape[0] != blocks.shape[0] or keymin.shape[0] == 0:
+                             f"({t.device} vs {dev})")
+    m = keymin.shape[0]
+    if m != blocks.shape[0] or m == 0:
         raise ValueError(f"hybrid_search: keymin {tuple(keymin.shape)} does "
                          f"not match blocks {tuple(blocks.shape)}")
 
 
 def hybrid_search(keymin, blocks, queries):
-    """Batched DiLi lookup (registry binary search + block sweep).
+    """Batched DiLi lookup (registry search + block sweep).
 
     ``keymin`` int32[M] sorted (INT32_MAX-padded), ``blocks`` int32[M, C]
     sorted rows (INT32_MAX-padded), ``queries`` int32[B] → ``slot``
     int32[B] (entry*C + pos, pos == C past a full block) and ``found``
     bool[B]. A query of ``INT32_MAX`` equals every pad cell, so its
-    ``found`` is masked to False, as in the reference's public wrapper.
+    ``found`` is masked to False, as in the reference's public wrapper:
+    by the kernel itself on the card, here on the CPU.
     """
     _check(keymin, blocks, queries)
-    if queries.device.type == "cuda":
+    dev_type = queries.device.type
+    if dev_type == "cuda":
         from . import hybrid_search as kernel
-        slot, found = kernel.launch(keymin, blocks, queries)
+        out = kernel.launch(keymin, blocks, queries)
         hybrid_search.launches += 1
-    elif queries.device.type == "cpu":
-        slot, found = ref_ops.hybrid_search_ref(keymin, blocks, queries)
-    else:
-        raise ValueError(f"hybrid_search: no kernel for device "
-                         f"{queries.device}")
-    return slot, found & (queries != _INT32_MAX)
+        return out
+    if dev_type == "cpu":
+        return hybrid_search_ref(keymin, blocks, queries)
+    raise ValueError(f"hybrid_search: no kernel for device {queries.device}")
 
 
 hybrid_search.launches = 0

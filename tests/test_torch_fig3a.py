@@ -6,7 +6,9 @@ recomputes those numbers from the reference with ``benchmarks/run.py``'s
 own driver and config (``_bench_cfg(1, block_probe=True)``,
 ``_drive_backend`` with the balancer every 4th round, ``_settle``), and from
 the port on the CPU with the smoke's copy of that driver, so the constant
-in the smoke is checked against both packages.
+in the smoke is checked against both packages. The port's run also
+counts the steps of the pre-pass's pointer walk, the smoke's
+``FIG3A_WALK_STEPS``.
 """
 import importlib.util
 import pathlib
@@ -57,10 +59,15 @@ def _reference():
 def _port():
     from repro_torch.api import LocalBackend
     from repro_torch.core.balancer import Balancer
+    from repro_torch.core.traverse import probe_batch
     from repro_torch.data import ycsb
     backend = LocalBackend(SMOKE.bench_cfg(), device="cpu")
-    return _fig3a_counts(backend, Balancer(backend), SMOKE.drive_backend,
-                         SMOKE.settle, ycsb)
+    probe_batch.steps = 0
+    counts = _fig3a_counts(backend, Balancer(backend), SMOKE.drive_backend,
+                           SMOKE.settle, ycsb)
+    # the smoke's walk-step count: lanes the kernel answers skip the walk
+    assert probe_batch.steps == SMOKE.FIG3A_WALK_STEPS
+    return counts
 
 
 @pytest.mark.parametrize("run", [_reference, _port],

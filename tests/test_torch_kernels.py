@@ -4,20 +4,40 @@ On the CPU the port's wrapper runs its plain PyTorch version; it is held
 against the reference's Pallas kernel (interpret mode, as the reference's
 own tests run it) and the reference's jnp oracle, on the shapes and edge
 cases of ``tests/test_kernels.py`` plus the fig3a main-path shape. The
-CUDA kernel itself is compared with the plain version by the ``gpu``
-test at the end, which runs on the card and skips elsewhere. The
-reference is imported inside the tests that use it, so the ``gpu`` test
-also runs where JAX is not installed::
+kernel's 32-ary registry search is modelled here in numpy, step for step
+as ``csrc/hybrid_search.cu`` writes it, and held against searchsorted.
+The CUDA kernel itself is compared with the plain version by the ``gpu``
+tests at the end, which run on the card and skip elsewhere: the main
+path's shapes and the edge cases of ``chip_smoke.hs_edge_case`` (ties,
+pads, the full-block-all-less row, sentinel queries, odd ``C`` and
+misaligned rows on the scalar sweep), bit for bit and repeatably. The
+reference is imported inside the tests that use it, so the ``gpu`` tests
+also run where JAX is not installed::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels.py
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops as TK
 
+INT_MIN = np.iinfo(np.int32).min
 INT_MAX = np.iinfo(np.int32).max
+
+
+def _load_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _load_smoke()
 
 
 def make_registry(rng, m, c, coverage=0.7):
@@ -158,6 +178,69 @@ def test_hybrid_search_wrapper_checks_inputs():
         TK.hybrid_search(keymin, blocks[0], q)                # not 2-D
 
 
+def search_32ary(keymin, q):
+    """numpy model of the kernel's registry search (the step block in
+    ``csrc/hybrid_search.cu``), one query per row of 32 lanes. Returns
+    (entry, steps taken by the query that took the most)."""
+    m = keymin.shape[0]
+    km = keymin.astype(np.int64)
+    q = q.astype(np.int64)
+    lo = np.zeros(q.shape, np.int64)
+    hi = np.full(q.shape, m, np.int64)
+    lane = np.arange(32)[None, :]
+    steps = 0
+    while (hi > lo).any():
+        span = hi - lo
+        s = np.where(span > 0, (span - 1) // 32 + 1, 1)
+        nvalid = span // s
+        valid = lane < nvalid[:, None]
+        idx = np.where(valid, lo[:, None] + (lane + 1) * s[:, None] - 1, 0)
+        lt = valid & (km[idx] < q[:, None])
+        k = lt.sum(axis=1)                          # popc(ballot)
+        hi = np.where(k < nvalid, lo + (k + 1) * s - 1, hi)
+        lo = lo + k * s
+        steps += 1
+    return np.maximum(lo - 1, 0), steps
+
+
+def _sorted_keymin(rng, m, pad):
+    """Sorted int32[m] with ties (drawn from a pool a third the size,
+    INT32_MIN among them) and ``pad`` INT32_MAX entries at the end."""
+    live = m - pad
+    pool = np.append(rng.integers(INT_MIN, INT_MAX, max(1, live // 3)),
+                     INT_MIN)
+    return np.concatenate([np.sort(rng.choice(pool, live)),
+                           np.full(pad, INT_MAX)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("m", [1, 2, 31, 32, 33, 255, 256, 1023, 1024,
+                               1025, 16384])
+def test_search_32ary_model_matches_searchsorted(m):
+    """The kernel's 32-ary step arithmetic gives searchsorted's entry (the
+    last i with keymin[i] < q, clamped into [0, M-1]) on sorted keymin with
+    ties and pads, at the int32 extremes, at every keymin value and its
+    neighbours, in at most ceil(log32 M) steps (one for M = 1)."""
+    rng = np.random.default_rng(m)
+    max_steps = max(1, next(d for d in range(8) if 32 ** d >= m))
+    for pad in sorted({0, m // 4, m - 1, m}):
+        keymin = _sorted_keymin(rng, m, pad)
+        near = keymin.astype(np.int64)[:, None] + np.arange(-1, 2)
+        q = np.unique(np.clip(np.concatenate(
+            [near.ravel(), [INT_MIN, INT_MAX - 1, INT_MAX]]),
+            INT_MIN, INT_MAX)).astype(np.int32)
+        entry, steps = search_32ary(keymin, q)
+        want = np.clip(np.searchsorted(keymin, q, side="left") - 1, 0, m - 1)
+        np.testing.assert_array_equal(entry, want)
+        assert 1 <= steps <= max_steps
+        # the port's plain twin gives the same entry: one pad column, so
+        # pos == 0 and slot == entry
+        slot, _ = TK.hybrid_search(torch.from_numpy(keymin),
+                                   torch.full((m, 1), INT_MAX,
+                                              dtype=torch.int32),
+                                   torch.from_numpy(q))
+        np.testing.assert_array_equal(slot.numpy(), want)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -185,4 +268,45 @@ def test_cuda_kernel_matches_plain(cuda_device, m, c, b):
     torch.cuda.synchronize()
     assert TK.hybrid_search.launches == before + 1
     slot_r, found_r = TK.hybrid_search_ref(*args)
+    assert torch.equal(slot, slot_r) and torch.equal(found, found_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", SMOKE.HS_EDGE_C)
+@pytest.mark.parametrize("m", SMOKE.HS_EDGE_M)
+def test_cuda_kernel_edge_cases(cuda_device, m, c):
+    """Bit for bit with the plain version at every batch size of the edge
+    grid; three calls are bitwise equal and count three launches."""
+    bs = SMOKE.HS_EDGE_B
+    keymin, blocks, q = SMOKE.hs_edge_case(m, c, max(bs), seed=m + c)
+    keymin, blocks = (torch.from_numpy(a).to(cuda_device)
+                      for a in (keymin, blocks))
+    for b in bs:
+        qb = torch.from_numpy(q[:b]).to(cuda_device)
+        before = TK.hybrid_search.launches
+        outs = [TK.hybrid_search(keymin, blocks, qb) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert TK.hybrid_search.launches == before + 3
+        slot_r, found_r = TK.hybrid_search_ref(keymin, blocks, qb)
+        for slot, found in outs:
+            assert slot.dtype == torch.int32 and found.dtype == torch.bool
+            assert torch.equal(slot, slot_r), (m, c, b)
+            assert torch.equal(found, found_r), (m, c, b)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_misaligned_rows(cuda_device):
+    """Rows that do not start on a 16-byte boundary (C % 4 == 0, storage
+    offset of one int) take the scalar sweep and give the same answers."""
+    m, c = 256, 160
+    keymin, blocks, q = SMOKE.hs_edge_case(m, c, 4096, seed=7)
+    flat = torch.empty(m * c + 1, dtype=torch.int32, device=cuda_device)
+    shifted = flat[1:].view(m, c)
+    shifted.copy_(torch.from_numpy(blocks).to(cuda_device))
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    args = (torch.from_numpy(keymin).to(cuda_device), shifted,
+            torch.from_numpy(q).to(cuda_device))
+    slot, found = TK.hybrid_search(*args)
+    slot_r, found_r = TK.hybrid_search_ref(*args)
+    torch.cuda.synchronize()
     assert torch.equal(slot, slot_r) and torch.equal(found, found_r)
