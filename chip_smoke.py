@@ -15,8 +15,8 @@ which makes the script exit non-zero when it fails:
                ``hybrid_search`` bit for bit at the fig3a and scale shapes,
                on the edge cases of the tests (the grid ``HS_EDGE_*`` of
                ``hs_edge_case``: ties, pads, the full-block-all-less row,
-               sentinel queries, both row sweeps) and repeatably, with 4
-               against 8 warps per block timed; ``paged_attention`` at
+               sentinel queries, both row sweeps) and repeatably;
+               ``paged_attention`` at
                the reference's three test shapes in f32 and bf16 (atol
                2e-5 / 2e-2, rtol 2e-2) and the serving shape, plus the
                padding-page invariance, the edge cases of the tests
@@ -357,12 +357,10 @@ def phase_kernels() -> dict:
     fig3a and scale shapes; repeated calls bitwise equal; a call issues
     the kernel and no other device operation. Then, per shape, the device
     time beside the bound, the wrapper's host time per call and the twin's
-    time, and at the fig3a and scale shapes 4 against 8 warps per block.
-    Returns the timing record."""
+    time. Returns the timing record."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import hybrid_search as HS
     from repro_torch.kernels import ops as K
 
     dev = torch.device("cuda")
@@ -464,27 +462,13 @@ def phase_kernels() -> dict:
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations", shape=[m, c, b])
-        if name != "scale_path":
-            # warps per block, in turns: 4, 8, 8, 4
-            by_w = {4: [], 8: []}
-            for w in (4, 8, 8, 4):
-                by_w[w].append(device_ms(
-                    lambda: HS.launch(*args, warps=w),
-                    name="hybrid_search_kernel"))
-            rec[name]["ms_by_warps"] = {w: statistics.mean(v)
-                                        for w, v in by_w.items()}
         log(f"[kernels] hybrid_search {name} M={m} C={c} B={b}: kernel "
             f"{ms * 1e3:.3f} us on the device per call (the kernel alone), "
             f"bound {rec[name]['bound_ms'] * 1e3:.4f} us "
             f"({rec[name]['bound_by']}); one wrapper call back to back "
             f"{call_ms * 1e3:.2f} us; plain version (reference only) "
             f"{plain_ms * 1e3:.3f} us on the device, "
-            f"{plain_call_ms * 1e3:.2f} us per call; bit-identical"
-            + ("" if name == "scale_path" else
-               "; warps per block " + ", ".join(
-                   f"{w}: {t * 1e3:.3f} us" for w, t in
-                   rec[name]["ms_by_warps"].items())
-               + f" (the wrapper uses {HS.WARPS_PER_BLOCK})"))
+            f"{plain_call_ms * 1e3:.2f} us per call; bit-identical")
     return rec
 
 
@@ -1195,7 +1179,6 @@ def main() -> None:
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None,
         shape=k["shape"], call_ms=k["call_ms"],
-        ms_by_warps=k["ms_by_warps"],
         ms_scale_path=krec["scale_path"]["ms"], ms_scale=krec["scale"]["ms"],
         call_ms_scale=krec["scale"]["call_ms"],
         bound_ms_scale=krec["scale"]["bound_ms"],

@@ -36,18 +36,22 @@
 //     between the loads: 16-byte vector loads where C % 4 == 0 and the
 //     rows are 16-byte aligned (C = 160: 40 int4, two per lane), scalar
 //     loads otherwise; then one warp min-reduction (__reduce_min_sync) of
-//     each lane's first key >= q gives pos, one vote gives found.
+//     each lane's first key >= q gives pos, one vote gives found. The
+//     vector sweep is the faster one at C = 160 on an H100 80GB HBM3 at
+//     700 W (scripts/hybrid_search_sweep.py, which builds both): 1.821
+//     against 1.909 us at the fig3a shape, 2.329 against 2.419 at
+//     M = 16384, B = 128, and 3.764 against 4.400 at B = 4096.
 // No shared memory: staging keymin costs M*4 bytes per block before the
 // first comparison, more than the few strided loads it would save. Nothing
 // here bounds the bytes.
 //
-// Block shape. One warp answers one query. The launcher takes the warps per
-// block; the wrapper uses 4 (kernels/hybrid_search.py::WARPS_PER_BLOCK):
-// at B = 128 that is 32 blocks where 8 warps give 16, so more SMs take a
-// share of the lanes. chip_smoke.py times both: on an H100 80GB HBM3 at
-// 700 W, 4 warps took 1.87 us and 8 warps 1.92 us at the fig3a shape
-// (M = 256, C = 160, B = 128); at B = 4096 the two were within 0.13 us,
-// either way round from run to run.
+// Block shape. One warp answers one query, 4 warps per block: at B = 128
+// that is 32 blocks where 8 warps give 16, so more SMs take a share of the
+// lanes. Timed once against 8 warps on an H100 80GB HBM3 at 700 W: 4 warps
+// took 1.85-1.90 us and 8 warps 1.92-1.93 us at the fig3a shape (M = 256,
+// C = 160, B = 128); at B = 4096 (M = 16384) 8 warps were 0-0.12 us
+// faster (3.79-3.83 us against 3.83-3.93). The rounds launch it at
+// B = 128, so 4 stays.
 //
 // The search step, exactly as tests/test_torch_kernels.py models it in
 // numpy. [lo, hi) is the part of keymin not yet classified: every index
@@ -73,7 +77,7 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxWarps = 8;
+constexpr int kWarps = 4;  // warps (queries) per block
 // ints of a row each lane loads per sweep batch: a batch covers 512 ints of
 // the row, so rows up to C = 512 take one round trip
 constexpr int kRowInts = 16;
@@ -128,7 +132,7 @@ __device__ __forceinline__ void sweep(const int* __restrict__ row, int c,
 }
 
 template <bool kVec>
-__global__ void __launch_bounds__(32 * kMaxWarps)
+__global__ void __launch_bounds__(32 * kWarps)
 hybrid_search_kernel(const int* __restrict__ keymin,
                      const int* __restrict__ blocks,
                      const int* __restrict__ queries,
@@ -136,7 +140,7 @@ hybrid_search_kernel(const int* __restrict__ keymin,
                      unsigned char* __restrict__ found,
                      int m, int c, int b) {
   const int lane = threadIdx.x & 31;
-  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (w >= b) return;  // uniform per warp: the votes below stay full-mask
 
   const int q = __ldg(queries + w);
@@ -173,17 +177,16 @@ hybrid_search_kernel(const int* __restrict__ keymin,
 }  // namespace
 
 // Plain C entry for ctypes. Pointers are device pointers; `stream` is a
-// cudaStream_t; `warps` (1..8) is the warps per block. Returns
-// cudaGetLastError() after the launch (0 = success).
+// cudaStream_t. Returns cudaGetLastError() after the launch (0 =
+// success).
 extern "C" int hybrid_search_launch(const void* keymin, const void* blocks,
                                     const void* queries, void* slot,
                                     void* found, int m, int c, int b,
-                                    int warps, void* stream) {
+                                    void* stream) {
   if (b <= 0) return 0;
-  if (m <= 0 || c <= 0 || warps < 1 || warps > kMaxWarps)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(32 * warps);
-  const dim3 grid((b + warps - 1) / warps);
+  if (m <= 0 || c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(32 * kWarps);
+  const dim3 grid((b + kWarps - 1) / kWarps);
   const bool vec = c % 4 == 0 &&
                    reinterpret_cast<unsigned long long>(blocks) % 16 == 0;
   auto* kernel = vec ? hybrid_search_kernel<true>

@@ -20,12 +20,8 @@ from . import build as B
 
 NAME = "hybrid_search"
 _SYMBOLS = {"hybrid_search_launch": (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     ctypes.c_int)}
-# warps (queries) per block: 4 spreads B = 128 over 32 blocks, where 8
-# give 16, and was the faster of the two at that shape on an H100
-# (csrc/hybrid_search.cu's note); the kernel takes 1..8
-WARPS_PER_BLOCK = 4
 
 _launch_fn = None
 
@@ -43,12 +39,11 @@ def _fn():
 
 
 def launch(keymin: torch.Tensor, blocks: torch.Tensor,
-           queries: torch.Tensor, *, warps: int = WARPS_PER_BLOCK):
+           queries: torch.Tensor):
     """Launch on the current CUDA stream. Inputs are validated by the
     public wrapper (``kernels/ops.py``); the outputs are allocated here, as
     one buffer: ``slot`` int32[B] in its first 4*B bytes, ``found``
-    bool[B] in the last B. ``warps`` overrides the warps per block (for
-    measurement)."""
+    bool[B] in the last B."""
     m, c = blocks.shape
     b = queries.shape[0]
     dev = queries.device
@@ -56,7 +51,7 @@ def launch(keymin: torch.Tensor, blocks: torch.Tensor,
     slot = out[:4 * b].view(torch.int32)
     found = out[4 * b:].view(torch.bool)
     err = _fn()(keymin.data_ptr(), blocks.data_ptr(), queries.data_ptr(),
-                out.data_ptr(), out.data_ptr() + 4 * b, m, c, b, warps,
+                out.data_ptr(), out.data_ptr() + 4 * b, m, c, b,
                 torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"hybrid_search launch failed: cudaError {err}")

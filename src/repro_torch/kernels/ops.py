@@ -18,11 +18,13 @@ _I32 = torch.int32
 
 
 def _check(keymin, blocks, queries) -> None:
-    dev = getattr(queries, "device", None)
-    for name, t, dim in (("keymin", keymin, 1), ("blocks", blocks, 2),
-                         ("queries", queries, 1)):
+    args = (("keymin", keymin, 1), ("blocks", blocks, 2),
+            ("queries", queries, 1))
+    for name, t, _ in args:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"hybrid_search: {name} must be a tensor")
+    dev = queries.device
+    for name, t, dim in args:
         if t.dtype is not _I32:
             raise TypeError(f"hybrid_search: {name} must be int32, "
                             f"got {t.dtype}")
@@ -34,10 +36,11 @@ def _check(keymin, blocks, queries) -> None:
         if t.device != dev:
             raise ValueError("hybrid_search: inputs on different devices "
                              f"({t.device} vs {dev})")
-    m = keymin.shape[0]
-    if m != blocks.shape[0] or m == 0:
+    m, c = blocks.shape
+    if keymin.shape[0] != m or m == 0 or c == 0:
         raise ValueError(f"hybrid_search: keymin {tuple(keymin.shape)} does "
-                         f"not match blocks {tuple(blocks.shape)}")
+                         f"not match blocks {tuple(blocks.shape)}, or one "
+                         f"is empty")
 
 
 def hybrid_search(keymin, blocks, queries):

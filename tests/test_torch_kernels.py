@@ -178,6 +178,27 @@ def test_hybrid_search_wrapper_checks_inputs():
         TK.hybrid_search(keymin, blocks[0], q)                # not 2-D
 
 
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_hybrid_search_wrapper_rejects_non_tensors(which):
+    """Any argument that is not a tensor raises TypeError, queries too."""
+    args = [torch.tensor([-1, 50], dtype=torch.int32),
+            torch.full((2, 8), INT_MAX, dtype=torch.int32),
+            torch.tensor([5, 60], dtype=torch.int32)]
+    args[which] = args[which].tolist()
+    with pytest.raises(TypeError, match="must be a tensor"):
+        TK.hybrid_search(*args)
+
+
+def test_hybrid_search_empty_rows():
+    """Rows of width C = 0 are refused with ValueError before anything
+    runs (``test_cuda_kernel_empty_rows`` on the card)."""
+    keymin = torch.tensor([-1, 50, INT_MAX], dtype=torch.int32)
+    blocks = torch.empty((3, 0), dtype=torch.int32)
+    q = torch.tensor([INT_MIN, 5, 60, INT_MAX], dtype=torch.int32)
+    with pytest.raises(ValueError, match="empty"):
+        TK.hybrid_search(keymin, blocks, q)
+
+
 def search_32ary(keymin, q):
     """numpy model of the kernel's registry search (the step block in
     ``csrc/hybrid_search.cu``), one query per row of 32 lanes. Returns
@@ -310,3 +331,17 @@ def test_cuda_kernel_misaligned_rows(cuda_device):
     slot_r, found_r = TK.hybrid_search_ref(*args)
     torch.cuda.synchronize()
     assert torch.equal(slot, slot_r) and torch.equal(found, found_r)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_empty_rows(cuda_device):
+    """C = 0 on the card: ValueError, as on the CPU, and no launch."""
+    keymin = torch.tensor([-1, 50, INT_MAX], dtype=torch.int32,
+                          device=cuda_device)
+    blocks = torch.empty((3, 0), dtype=torch.int32, device=cuda_device)
+    q = torch.tensor([INT_MIN, 5, 60, INT_MAX], dtype=torch.int32,
+                     device=cuda_device)
+    before = TK.hybrid_search.launches
+    with pytest.raises(ValueError, match="empty"):
+        TK.hybrid_search(keymin, blocks, q)
+    assert TK.hybrid_search.launches == before
