@@ -40,20 +40,37 @@ which makes the script exit non-zero when it fails:
                the per-phase timer (the round's breakdown);
   4. client  — a few hundred ops through ``DiLiClient`` futures, each
                result equal to the oracle's;
-  5. serving — Qwen2-0.5B at full width, f32, random weights from a fixed
-               seed, through ``ServingEngine`` over a one-shard DiLi page
+  5. rebalance — ``benchmarks/run.py::rebalance`` part A: one Move of a
+               125-key sublist between two servers at move_batch K = 1,
+               4, 16, 32; the Move's rounds must equal the reference's
+               (``REBALANCE_EXPECTED``) and the keys the inserted set;
+  6. fig3b4  — fig3b's 4-server run (``benchmarks/run.py::fig3b``, block
+               probe on, the balancer spreading sublists by Moves): the
+               key set agrees with the ops' results
+               (``check_against_results``), the protocol counts equal the
+               reference's (``FIG3B4_EXPECTED``: rounds, hits, the batched
+               replay's ``move_hits``, hops, keys per server), and
+               ``hybrid_search`` launches on every server; the per-phase
+               breakdown includes ``replay_prepass`` and ``bg_step``;
+  7. serving — Qwen2-0.5B at full width, f32, random weights from a fixed
+               seed, through ``ServingEngine`` over a two-shard DiLi page
                index, as ``benchmarks/run.py::serving`` drives it (``SERVE``):
                static, rescan and range modes give identical greedy tokens,
-               the index splits live and RANGE heals the snapshot, and
-               ``paged_attention`` launches once per layer per decode step;
-               then a profiler window (busy share, device launches per
-               decode step) and the kernel path against the gather path on
-               4 decode steps;
-  6. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
+               the index splits and moves between the shards live and the
+               snapshot heals, and ``paged_attention`` launches once per
+               layer per decode step; then a profiler window (busy share,
+               device launches per decode step) and the kernel path
+               against the gather path on 4 decode steps;
+  8. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
                entries) with ``SCALE_KEYS`` loaded keys and as many r50
                ops, checked against the oracle; then a window of rounds
                under the per-phase timer and a profiler window. Both DiLi
-               phases log the walk's steps and its milliseconds per step.
+               phases log the walk's steps and its milliseconds per step;
+  9. scale4  — four servers at those capacities each, ``SCALE4_KEYS``
+               keys and as many r50 ops: the key set agrees with the
+               ops' results, owned keys
+               within 1.25x of the mean after the settle, a Move into each
+               of servers 1-3; breakdown and a profiler window.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -84,11 +101,36 @@ FIG3A_EXPECTED = dict(rounds=107, load_rounds=34, settle_rounds=44,
 # tests/test_torch_fig3a.py; with every lane walking it was 10,559
 FIG3A_WALK_STEPS = 5287
 
-# Keys loaded (and r50 ops) in the scale phase: half of the 2**16 the
-# capacities were sized for. With 2**16 the whole script took 1120 s of
-# its 1200 s limit on one H100 host, the round being host-bound
+# fig3b's 4-server run (benchmarks/run.py::fig3b with the block probe,
+# load_phase(1500, 6000, seed=3), mixed_phase(12000, 6000, 0.5, seed=4)),
+# as the JAX reference gives it: rounds of the load, the settle and the
+# mix, the hit counters, the deepest delegation and the keys each server
+# owns at the end. tests/test_torch_fig3b.py recomputes these from the
+# reference and from the port on the CPU
+FIG3B4_EXPECTED = dict(load_rounds=8, settle_rounds=120, mix_rounds=49,
+                       fast_hits=662, mut_hits=704, blk_hits=1278,
+                       move_hits=1327, max_hops=2, owned=[517, 554, 544, 303])
+
+# benchmarks/run.py::rebalance part A: rounds to move one 125-key sublist
+# between two servers at move_batch K, as the reference gives them
+# (tests/test_torch_fig3b.py recomputes them)
+REBALANCE_EXPECTED = {1: 138, 4: 45, 16: 21, 32: 17}
+
+# Keys loaded (and r50 ops) in the 4-server scale phase, at the paper's
+# capacities per server: 2**11. With 2**12, and the one-server scale
+# phase at 2**15 keys, the whole script took 1020 s of its 1200 s limit
+# on a slow H100 host (PERF.md, "Cells")
+SCALE4_KEYS = 1 << 11
+
+# Keys loaded (and r50 ops) in the scale phase: a quarter of the 2**16
+# the capacities were sized for. With 2**16 the whole script once took
+# 1120 s of its 1200 s limit on one H100 host, the round being
+# host-bound, and 2**15 was cut too when the 4-server phases came in
 # (PERF.md, "Cells")
-SCALE_KEYS = 1 << 15
+SCALE_KEYS = 1 << 14
+
+# rounds of the scale phase's window under the per-phase timer
+SCALE_TIMED_ROUNDS = 32
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the CUDA-core f32
 # rate (also the nearest table entry for int32 compares) and the bf16
@@ -108,7 +150,7 @@ HS_EDGE_C = (1, 3, 31, 32, 33, 160, 161)
 HS_EDGE_B = (1, 31, 128, 4096)
 
 # the serving phase (benchmarks/run.py::serving at the full width of
-# Qwen2-0.5B, one DiLi shard): live requests, their prompt lengths and
+# Qwen2-0.5B, two DiLi shards): live requests, their prompt lengths and
 # new tokens, parked sequences padding the page index, timed decode steps
 # and the rebalance period
 SERVE = dict(live=8, prompt_lo=256, prompt_hi=512, max_new=32, idle=32,
@@ -196,27 +238,64 @@ def device_ms(fn, iters: int = 100, name: str | None = None,
 
 
 def drive_backend(backend, kinds, keys, batch, *, balancer=None,
-                  max_drain=4000):
+                  max_drain=4000, log=None):
     """``benchmarks/run.py::_drive_backend``: feed ops round-robin at the
-    raw backend surface, balancer every 4th round, then drain."""
+    raw backend surface, balancer every 4th round, then drain. With a
+    list ``log``, every op's (kind, key, result) is appended to it as it
+    completes."""
     n = len(kinds)
     pending = i = r = 0
+    issued = {}
+
+    def step():
+        comps = backend.step()
+        if log is not None:
+            for op_id, val, _ in comps:
+                log.append(issued.pop(op_id) + (int(val),))
+        return len(comps)
+
     while i < n:
         for s in range(backend.n):
             j = min(i + batch, n)
             if i < j:
-                backend.submit(s, kinds[i:j].tolist(), keys[i:j].tolist())
+                ids = backend.submit(s, kinds[i:j].tolist(),
+                                     keys[i:j].tolist())
+                issued.update(zip(ids, zip(kinds[i:j].tolist(),
+                                           keys[i:j].tolist())))
                 pending += j - i
                 i = j
-        pending -= len(backend.step())
+        pending -= step()
         if balancer is not None and r % 4 == 3:
             balancer.step()
         r += 1
     for _ in range(max_drain):
         if pending == 0 and backend.quiescent():
             return
-        pending -= len(backend.step())
+        pending -= step()
     fail(f"backend did not drain: pending={pending}")
+
+
+def check_against_results(what: str, log, got_keys) -> None:
+    """Servers fed in the same round race on a shared key, so a
+    multi-server run has no single sequential oracle (the reference's
+    fig3b4 run ends with 1,918 keys, the sequential order with 1,920).
+    What must hold in any order: every result is 0 or 1; on every key the
+    successful INSERTs and REMOVEs alternate from absent, so their count
+    difference is 0 or 1; and the final key set is the set of keys where
+    it is 1."""
+    from repro_torch.core.types import OP_INSERT, OP_REMOVE
+    bad = [x for x in log if x[2] not in (0, 1)]
+    check(not bad, f"{what}: error results {bad[:5]}")
+    net = {}
+    for kind, key, val in log:
+        if val and kind in (OP_INSERT, OP_REMOVE):
+            net[key] = net.get(key, 0) + (1 if kind == OP_INSERT else -1)
+    bad = [k for k, v in net.items() if v not in (0, 1)]
+    check(not bad, f"{what}: keys {bad[:5]} were inserted or removed "
+                   f"twice without the other in between")
+    want = sorted(k for k, v in net.items() if v == 1)
+    check(got_keys == want, f"{what}: the final key set ({len(got_keys)}) "
+                            f"differs from the ops' results ({len(want)})")
 
 
 def settle(backend, balancer, max_passes: int = 200) -> None:
@@ -254,6 +333,99 @@ def walk_ms_per_step(timer, steps: int, rounds: int) -> str:
     return (f"{ms / max(steps, 1):.4f} ms per walk step ({steps} steps, "
             f"{steps / max(rounds, 1):.2f} per round, "
             f"{timer.calls.get('probe_batch', 0)} calls)")
+
+
+def owned_keys(backend) -> list:
+    """Keys each server owns, from its own registry replica."""
+    return [sum(e["size"] or 0 for e in backend.sublists(s)
+                if e["owner"] == s) for s in range(backend.n)]
+
+
+def fig3b4_workload():
+    """``benchmarks/run.py::fig3b``'s load and its 4-server mix."""
+    from repro_torch.data.ycsb import load_phase, mixed_phase
+    return (load_phase(1500, 6000, seed=3),
+            mixed_phase(3000 * 4, 6000, 0.5, seed=4))
+
+
+def fig3b4_counts(backend, load_end: int, settle_end: int) -> dict:
+    """The protocol counts ``FIG3B4_EXPECTED`` holds, from a backend that
+    ran the load (ending at round ``load_end``), the settle (ending at
+    ``settle_end``) and the mix."""
+    st = backend.stats
+    return dict(load_rounds=load_end, settle_rounds=settle_end - load_end,
+                mix_rounds=st["rounds"] - settle_end,
+                fast_hits=st["fast_hits"], mut_hits=st["mut_hits"],
+                blk_hits=st["blk_hits"], move_hits=st["move_hits"],
+                max_hops=st["max_hops"], owned=owned_keys(backend))
+
+
+def rebalance_move(cluster_cls, cfg_cls, op_insert: int, k: int,
+                   sync=lambda: None, **extra) -> dict:
+    """``benchmarks/run.py::rebalance`` part A at ``move_batch`` k: two
+    servers, 125 keys on server 0, then one Move of its sublist to
+    server 1, run until quiet. Returns the Move's rounds, its seconds
+    (``sync`` is called before each clock read) and the cluster."""
+    cfg = cfg_cls(num_shards=2, pool_capacity=4096, max_sublists=32,
+                  max_ctrs=32, max_scan=4096, batch_size=32,
+                  mailbox_cap=256, move_batch=k)
+    cl = cluster_cls(cfg, **extra)
+    keys = list(range(10, 10 + 125 * 7, 7))
+    cl.submit(0, [op_insert] * len(keys), keys)
+    cl.run_until_quiet(600)
+    r0 = cl.round_no
+    sync()
+    t0 = time.perf_counter()
+    ok = cl.move(0, cl.sublists(0)[0]["keymax"], 1)
+    cl.run_until_quiet(1200)
+    sync()
+    return dict(ok=bool(ok), rounds=cl.round_no - r0,
+                seconds=time.perf_counter() - t0,
+                keys_ok=cl.all_keys() == keys, cluster=cl)
+
+
+class ShardLaunches:
+    """Counts ``hybrid_search`` launches per server: wraps the round
+    function the cluster calls, reading the wrapper's count around each
+    server's round. ``with ShardLaunches() as per: ...`` leaves
+    ``per[s]``."""
+
+    def __enter__(self):
+        from repro_torch.core import sim
+        from repro_torch.kernels import ops as K
+        self.per = {}
+        self.orig = sim.shard_round
+
+        def counted(state, bg, me, *a, **kw):
+            n0 = K.hybrid_search.launches
+            out = self.orig(state, bg, me, *a, **kw)
+            self.per[int(me)] = self.per.get(int(me), 0) \
+                + K.hybrid_search.launches - n0
+            return out
+
+        sim.shard_round = counted
+        return self.per
+
+    def __exit__(self, *exc):
+        from repro_torch.core import sim
+        sim.shard_round = self.orig
+        return False
+
+
+def moves_by_target(backend):
+    """Wrap ``backend.move`` to record the target of every Move the
+    balancer's commands queue; returns the dict it fills."""
+    targets = {}
+    move = backend.move
+
+    def counted(s, entry_keymax, target):
+        ok = move(s, entry_keymax, target)
+        if ok:
+            targets[int(target)] = targets.get(int(target), 0) + 1
+        return ok
+
+    backend.move = counted
+    return targets
 
 
 # ------------------------------------------------------------------ phases
@@ -731,8 +903,8 @@ def _run_fig3a(timer):
 
 def profile_rounds(backend, kinds, keys, rounds: int = 8) -> dict:
     """A ``torch.profiler`` window over ``rounds`` rounds of r50 traffic on
-    a settled list: the device's busy share of the wall time, and the
-    device work that fills it."""
+    a settled list, 64 ops per server per round: the device's busy share
+    of the wall time, and the device work that fills it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -740,8 +912,10 @@ def profile_rounds(backend, kinds, keys, rounds: int = 8) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for r in range(rounds):
-            sl = slice(64 * r, 64 * (r + 1))
-            backend.submit(0, kinds[sl].tolist(), keys[sl].tolist())
+            for s in range(backend.n):
+                i = 64 * (r * backend.n + s)
+                backend.submit(s, kinds[i:i + 64].tolist(),
+                               keys[i:i + 64].tolist())
             backend.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -821,7 +995,7 @@ def phase_client() -> None:
         f"stats {json.dumps(client.stats)}")
 
 
-def phase_scale(n_keys: int, timed_rounds: int = 64) -> dict:
+def phase_scale(n_keys: int, timed_rounds: int) -> dict:
     """Load, settle and an untimed r50 mix (ops/s) checked against the
     oracle; then ``timed_rounds`` more rounds of the same mix under the
     phase timer (the breakdown) and a profiler window."""
@@ -901,6 +1075,190 @@ def phase_scale(n_keys: int, timed_rounds: int = 64) -> dict:
                 walk_steps=walk_steps)
 
 
+def phase_rebalance() -> dict:
+    """``benchmarks/run.py::rebalance`` part A on the card: one Move of a
+    125-key sublist between two servers at K = 1, 4, 16, 32. The Move's
+    rounds must equal the reference's and the keys the inserted set."""
+    import torch
+    from repro_torch.core.sim import Cluster
+    from repro_torch.core.types import DiLiConfig, OP_INSERT
+    from repro_torch.timing import PhaseTimer
+    rec = {}
+    for k, want in REBALANCE_EXPECTED.items():
+        r = rebalance_move(Cluster, DiLiConfig, OP_INSERT, k,
+                           sync=torch.cuda.synchronize, device="cuda")
+        cl = r.pop("cluster")
+        check(r["ok"], f"rebalance K={k}: the Move was refused")
+        check(r["rounds"] == want,
+              f"rebalance K={k}: the Move took {r['rounds']} rounds, the "
+              f"reference {want}")
+        check(r["keys_ok"], f"rebalance K={k}: keys differ from the "
+                            f"inserted set after the Move")
+        check(all(e["owner"] == 1 for s in range(2)
+                  for e in cl.sublists(s)),
+              f"rebalance K={k}: server 1 does not own the sublist")
+        # the same Move again under the per-phase timer (its syncs make
+        # it slower): the round's breakdown, replay_prepass included
+        timer = PhaseTimer("cuda")
+        t = rebalance_move(Cluster, DiLiConfig, OP_INSERT, k,
+                           sync=torch.cuda.synchronize, device="cuda",
+                           timer=timer)
+        check(t["rounds"] == want, f"rebalance K={k}: the timed Move took "
+                                   f"{t['rounds']} rounds")
+        total = t["cluster"].round_no
+        rec[k] = dict(rounds=r["rounds"], ms=1e3 * r["seconds"],
+                      move_hits=cl.stats["move_hits"],
+                      breakdown=breakdown(timer, total))
+        log(f"[rebalance] K={k}: Move in {r['rounds']} rounds (= the "
+            f"reference's), {1e3 * r['seconds']:.1f} ms, "
+            f"{1e3 * r['seconds'] / r['rounds']:.2f} ms per round; "
+            f"move_hits {cl.stats['move_hits']}; keys equal the inserted "
+            f"set; timed run (load + Move, {total} rounds) "
+            f"{1e3 * t['seconds']:.1f} ms for the Move, per-round ms "
+            f"{json.dumps(rec[k]['breakdown'])}")
+    return rec
+
+
+def phase_fig3b4() -> dict:
+    """fig3b's 4-server run (``benchmarks/run.py::fig3b``, block probe
+    on): load, settle and the r50 mix under the balancer every 4th round,
+    with the per-phase timer on (its syncs are the only difference from
+    an untimed run). The key set must agree with the ops' results, the
+    counts equal ``FIG3B4_EXPECTED``, and ``hybrid_search`` must launch on
+    every server."""
+    import torch
+    from repro_torch.api import LocalBackend
+    from repro_torch.core.balancer import Balancer
+    from repro_torch.kernels import ops as K
+    from repro_torch.timing import PhaseTimer
+
+    (load_kinds, load_keys), (kinds, keys) = fig3b4_workload()
+    timer = PhaseTimer("cuda")
+    backend = LocalBackend(bench_cfg(num_shards=4), device="cuda",
+                           timer=timer)
+    bal = Balancer(backend)
+    ops = []
+    K.hybrid_search.launches = 0
+    with ShardLaunches() as per_server:
+        t0 = time.perf_counter()
+        drive_backend(backend, load_kinds, load_keys, 64, balancer=bal,
+                      log=ops)
+        load_end = backend.stats["rounds"]
+        settle(backend, bal)
+        torch.cuda.synchronize()
+        t_set = time.perf_counter() - t0
+        settle_end = backend.stats["rounds"]
+        bd_settle = breakdown(timer, settle_end)
+        timer.reset()
+        t0 = time.perf_counter()
+        drive_backend(backend, kinds, keys, 64, balancer=bal, log=ops)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = K.hybrid_search.launches
+
+    check(len(ops) == len(load_kinds) + len(kinds),
+          f"fig3b4: {len(ops)} results for "
+          f"{len(load_kinds) + len(kinds)} ops")
+    check_against_results("fig3b4", ops, backend.all_keys())
+    counts = fig3b4_counts(backend, load_end, settle_end)
+    check(counts == FIG3B4_EXPECTED,
+          f"fig3b4: counts {counts} != reference {FIG3B4_EXPECTED}")
+    check(all(per_server.get(s, 0) > 0 for s in range(4)),
+          f"fig3b4: hybrid_search launches per server {per_server}: not "
+          f"every server's pre-pass reached the kernel")
+    mix_rounds = counts["mix_rounds"]
+    bd = breakdown(timer, mix_rounds)
+    log(f"[fig3b4] 4 servers, r50 block probe: {len(kinds) / dt:.1f} ops/s "
+        f"over the mix ({mix_rounds} rounds, {dt:.3f} s, "
+        f"{1e3 * dt / mix_rounds:.3f} ms/round); load + settle "
+        f"{settle_end} rounds in {t_set:.1f} s "
+        f"({1e3 * t_set / settle_end:.3f} ms/round); counts equal the "
+        f"reference: {counts}; hybrid_search launches {launches}, per "
+        f"server {dict(sorted(per_server.items()))}")
+    log(f"[fig3b4] per-round ms over load + settle (the Moves): "
+        f"{json.dumps(bd_settle)}")
+    log(f"[fig3b4] per-round ms over the mix: {json.dumps(bd)}")
+    return dict(ops_per_s=len(kinds) / dt, ms_per_round=1e3 * dt / mix_rounds,
+                settle_ms_per_round=1e3 * t_set / settle_end,
+                launches=launches, per_server=per_server, breakdown=bd,
+                breakdown_settle=bd_settle, counts=counts)
+
+
+def phase_scale4(n_keys: int) -> dict:
+    """Four servers at the paper's capacities per server (2**21 pool
+    nodes, 16384 registry entries and counters), else as fig3b4:
+    ``n_keys`` loaded keys, the balancer's settle, then as many r50 ops,
+    checked against the ops' results. After the settle the owned keys must be
+    spread within 1.25x of the mean and each of servers 1-3 must have
+    received a Move. A profiler window closes it."""
+    import torch
+    from repro_torch.api import LocalBackend
+    from repro_torch.core.balancer import Balancer
+    from repro_torch.data.ycsb import load_phase, mixed_phase
+    from repro_torch.kernels import ops as K
+    from repro_torch.timing import PhaseTimer
+
+    key_space = 1 << 21
+    cfg = bench_cfg(num_shards=4, pool_capacity=1 << 21,
+                    max_sublists=16384, max_ctrs=16384)
+    load_kinds, load_keys = load_phase(n_keys, key_space, seed=1)
+    kinds, keys = mixed_phase(n_keys, key_space, 0.5, seed=2)
+    timer = PhaseTimer("cuda")
+    backend = LocalBackend(cfg, device="cuda", timer=timer)
+    bal = Balancer(backend)
+    moves = moves_by_target(backend)
+    ops = []
+    K.hybrid_search.launches = 0
+    with ShardLaunches() as per_server:
+        t0 = time.perf_counter()
+        drive_backend(backend, load_kinds, load_keys, 64, balancer=bal,
+                      log=ops)
+        load_end = backend.stats["rounds"]
+        settle(backend, bal)
+        torch.cuda.synchronize()
+        t_set = time.perf_counter() - t0
+        settle_end = backend.stats["rounds"]
+        owned = owned_keys(backend)
+        bd_settle = breakdown(timer, settle_end)
+        timer.reset()
+        t0 = time.perf_counter()
+        drive_backend(backend, kinds, keys, 64, balancer=bal, log=ops)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = K.hybrid_search.launches
+
+    check(len(ops) == 2 * n_keys,
+          f"scale4: {len(ops)} results for {2 * n_keys} ops")
+    check_against_results("scale4", ops, backend.all_keys())
+    spread = max(owned) / (sum(owned) / len(owned))
+    check(spread <= 1.25, f"scale4: owned keys {owned} after the settle, "
+                          f"max/mean {spread:.3f} > 1.25")
+    check(all(moves.get(s, 0) > 0 for s in (1, 2, 3)),
+          f"scale4: Moves by target {moves}: a server got none")
+    check(all(per_server.get(s, 0) > 0 for s in range(4)),
+          f"scale4: hybrid_search launches per server {per_server}")
+    st = dict(backend.stats)
+    mix_rounds = st["rounds"] - settle_end
+    bd = breakdown(timer, mix_rounds)
+    log(f"[scale4] {n_keys} keys over 4 servers of 2**21 nodes / 16384 "
+        f"entries: load + settle {settle_end} rounds ({load_end} load) in "
+        f"{t_set:.1f} s ({1e3 * t_set / settle_end:.3f} ms/round); owned "
+        f"keys after the settle {owned} (max/mean {spread:.3f}); Moves by "
+        f"target {dict(sorted(moves.items()))}; r50 mix "
+        f"{len(kinds) / dt:.1f} ops/s ({mix_rounds} rounds, {dt:.1f} s, "
+        f"{1e3 * dt / mix_rounds:.3f} ms/round); stats {json.dumps(st)}; "
+        f"hybrid_search launches {launches}, per server "
+        f"{dict(sorted(per_server.items()))}")
+    log(f"[scale4] per-round ms over load + settle: "
+        f"{json.dumps(bd_settle)}")
+    log(f"[scale4] per-round ms over the mix: {json.dumps(bd)}")
+    backend.cluster.timer = None
+    prof = profile_rounds(backend, kinds, keys, rounds=4)
+    return dict(ops_per_s=len(kinds) / dt, ms_per_round=1e3 * dt / mix_rounds,
+                launches=launches, per_server=per_server, moves=moves,
+                spread=spread, profile=prof)
+
+
 def serve_requests(vocab: int):
     """The serving phase's live requests: prompt lengths and tokens drawn
     from ``SERVE["seed"]``."""
@@ -926,11 +1284,26 @@ def _timed(fn, spent):
     return call
 
 
+def settle_index(eng, max_passes: int = 200) -> int:
+    """Run a serving engine's balancer over its page index to a fixed
+    point, draining the DiLi client after each pass; returns the passes.
+    Works on the reference's engine too (the same two calls)."""
+    for passes in range(max_passes):
+        if not any(eng.balancer.step().values()):
+            return passes
+        eng.kv.client.drain(600)
+    fail(f"the page index did not settle in {max_passes} passes")
+
+
 def _serve_mode(cfg, params, prompts, mode: str) -> dict:
     """One run of ``benchmarks/run.py::serving`` in ``mode`` (static,
-    rescan or range): park the idle sequences, admit the live ones, one
-    warm step, then the timed steps with a rebalance every
-    ``rebalance_every``-th (not in static)."""
+    rescan or range): park the idle sequences, and in the migrating modes
+    settle the parked index over the two shards (splits and Moves); admit
+    the live ones, one warm step, then the timed steps with a rebalance
+    every ``rebalance_every``-th (not in static). Without the settle no
+    Move happens in the timed steps: while two entries are still over the
+    split threshold, the page index's two background slots go to
+    splits."""
     import torch
     from repro_torch.kernels import ops as K
     from repro_torch.serving.engine import Request, ServingEngine
@@ -938,10 +1311,11 @@ def _serve_mode(cfg, params, prompts, mode: str) -> dict:
     pages = -(-(SERVE["prompt_hi"] + SERVE["max_new"]) // ps)
     eng = ServingEngine(cfg, params, page_size=ps,
                         num_pages=(live + idle + 2) * pages, max_batch=live,
-                        dili_shards=1, use_kernel=True,
+                        dili_shards=2, use_kernel=True,
                         refresh_mode="rescan" if mode == "static" else mode,
                         device="cuda")
     stats = eng.kv.backend.stats
+    moves = moves_by_target(eng.kv.backend)
     K.paged_attention.launches = 0
     K.hybrid_search.launches = 0
     t0 = time.perf_counter()
@@ -949,6 +1323,13 @@ def _serve_mode(cfg, params, prompts, mode: str) -> dict:
         eng.kv.alloc_pages(sid, pages)
     park_rounds = stats["rounds"]
     t_park = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    passes = settle_index(eng) if mode != "static" else 0
+    torch.cuda.synchronize()
+    settle_rec = dict(passes=passes, rounds=stats["rounds"] - park_rounds,
+                      seconds=time.perf_counter() - t0,
+                      moves=sum(moves.values()))
+    r_admit = stats["rounds"]
     reqs = [Request(seq_id=i, prompt=p, max_new=SERVE["max_new"])
             for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
@@ -956,7 +1337,7 @@ def _serve_mode(cfg, params, prompts, mode: str) -> dict:
         eng.admit(r)
     torch.cuda.synchronize()
     t_admit = time.perf_counter() - t0
-    admit_rounds = stats["rounds"] - park_rounds
+    admit_rounds = stats["rounds"] - r_admit
     eng.step()                                   # warm step
     torch.cuda.synchronize()
     # the rebalance's own cost: balancer + drain + heal, timed where the
@@ -971,6 +1352,7 @@ def _serve_mode(cfg, params, prompts, mode: str) -> dict:
         rebalance = mode != "static" and \
             s % SERVE["rebalance_every"] == SERVE["rebalance_every"] - 1
         r0, subs0 = stats["rounds"], len(eng.kv.backend.sublists(0))
+        m0 = sum(moves.values())
         spent[0] = 0.0
         t0 = time.perf_counter()
         eng.step(rebalance=rebalance)
@@ -979,6 +1361,7 @@ def _serve_mode(cfg, params, prompts, mode: str) -> dict:
         if rebalance:
             reb.append(dict(ms=1e3 * spent[0], step_ms=1e3 * dt,
                             rounds=stats["rounds"] - r0,
+                            moves=sum(moves.values()) - m0,
                             sublists=(subs0,
                                       len(eng.kv.backend.sublists(0)))))
         else:
@@ -993,7 +1376,9 @@ def _serve_mode(cfg, params, prompts, mode: str) -> dict:
                 launches=launches, hs_launches=K.hybrid_search.launches,
                 tokens=[list(r.out) for r in reqs], stats=dict(stats),
                 park=(park_rounds, t_park), admit=(admit_rounds, t_admit),
-                sublists=len(eng.kv.backend.sublists(0)))
+                sublists=len(eng.kv.backend.sublists(0)),
+                moves=sum(x["moves"] for x in reb), settle=settle_rec,
+                owned=owned_keys(eng.kv.backend))
 
 
 def _kernel_vs_gather(eng, steps: int = 4) -> float:
@@ -1042,7 +1427,7 @@ def _kernel_vs_gather(eng, steps: int = 4) -> float:
 
 def phase_serving() -> dict:
     """Qwen2-0.5B at full width, f32, random weights from a fixed seed,
-    through ``ServingEngine(use_kernel=True, dili_shards=1)`` in the three
+    through ``ServingEngine(use_kernel=True, dili_shards=2)`` in the three
     modes of ``benchmarks/run.py::serving``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1076,8 +1461,13 @@ def phase_serving() -> dict:
             + (f"rebalances (balancer + drain + heal) "
                f"{[round(x['ms'], 1) for x in reb]} ms in steps of "
                f"{[round(x['step_ms'], 1) for x in reb]} ms, DiLi rounds "
-               f"{[x['rounds'] for x in reb]}, sublists "
-               f"{[x['sublists'] for x in reb]}; " if reb else "")
+               f"{[x['rounds'] for x in reb]}, Moves "
+               f"{[x['moves'] for x in reb]}, sublists "
+               f"{[x['sublists'] for x in reb]}, owned keys per shard "
+               f"{r['owned']}; settle of the parked index "
+               f"{r['settle']['passes']} passes, {r['settle']['rounds']} "
+               f"rounds, {r['settle']['moves']} Moves, "
+               f"{r['settle']['seconds']:.1f} s; " if reb else "")
             + f"parking {SERVE['idle']} sequences {r['park'][0]} rounds "
             f"{r['park'][1]:.1f} s, admitting {SERVE['live']} "
             f"{r['admit'][0]} rounds {r['admit'][1]:.1f} s; "
@@ -1090,6 +1480,9 @@ def phase_serving() -> dict:
     for mode in ("rescan", "range"):
         check(runs[mode]["sublists"] > 1,
               f"serving {mode}: the page index never split")
+        check(runs[mode]["moves"] > 0,
+              f"serving {mode}: no page-index sublist moved between the "
+              f"two shards during the decode steps")
     check(ranged["stats"]["range_hits"] > 0,
           "serving range: no RANGE segment was served by the pre-pass")
 
@@ -1166,8 +1559,11 @@ def main() -> None:
     prec = phase_paged_kernel(serve_lens)
     f3 = phase_fig3a()
     phase_client()
+    reb = phase_rebalance()
+    f3b = phase_fig3b4()
     serving = phase_serving()
-    scale = phase_scale(SCALE_KEYS)
+    scale = phase_scale(SCALE_KEYS, SCALE_TIMED_ROUNDS)
+    scale4 = phase_scale4(SCALE4_KEYS)
 
     k = krec["fig3a"]
     p = prec["serving_f32"]
@@ -1183,6 +1579,10 @@ def main() -> None:
         call_ms_scale=krec["scale"]["call_ms"],
         bound_ms_scale=krec["scale"]["bound_ms"],
         launches_scale=scale["launches"],
+        launches_fig3b4=f3b["launches"],
+        launches_fig3b4_per_server=f3b["per_server"],
+        launches_scale4=scale4["launches"],
+        launches_scale4_per_server=scale4["per_server"],
         walk_steps_fig3a=f3["plain"]["walk_steps"],
         walk_steps_scale=scale["walk_steps"]), dict(
         name="paged_attention", route="cuda",
@@ -1197,10 +1597,15 @@ def main() -> None:
         serving_launches_per_step=serving["launches_per_step"],
         launches_all_modes=sum(r["launches"]
                                for r in serving["runs"].values()),
+        serving_dili_shards=2,
+        serving_moves={m: r["moves"] for m, r in serving["runs"].items()},
         ms_by_shape={n: r["ms"] for n, r in prec.items()})]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
+    log(f"[rebalance] Move rounds by K "
+        f"{ {k: r['rounds'] for k, r in reb.items()} }, ms "
+        f"{ {k: round(r['ms'], 1) for k, r in reb.items()} }")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi[0], flush=True)

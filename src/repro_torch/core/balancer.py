@@ -27,9 +27,7 @@ double-counted by duplicated deliveries; the balancer needs no defensive
 clamping of its own.
 
 This is a copy of the reference policy. With one shard it only splits:
-moves need two targets and merges a positive ``merge_threshold``; those
-stages call the cluster's Move/Merge commands, which raise until their
-slice of the port lands.
+moves need two targets and merges a positive ``merge_threshold``.
 
 The Split/Move/Merge primitives are the *interface*; this policy is
 deliberately simple and replaceable (the paper calls for workload-specific

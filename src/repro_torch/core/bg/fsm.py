@@ -3,8 +3,12 @@
 A shard runs up to ``cfg.bg_slots`` background operations; its table is a
 ``BgState`` whose leaves are ``[bg_slots]`` int32 tensors (refs as int32
 bit patterns). Phase graph and claim discipline as in the reference
-(DESIGN.md §10). This slice steps only the Split phases; the host helpers
-below read any table.
+(DESIGN.md §10)::
+
+   IDLE -> SPLIT_EXEC -> SPLIT_WAIT -> IDLE
+   IDLE -> MOVE_SH -> MOVE_SH_WAIT -> MOVE_COPY -> MOVE_STABLE
+        -> SWITCH_ST [-> SWITCH_ST_WAIT] -> SWITCH_REG -> QUAR -> IDLE
+   IDLE -> MERGE_EXEC -> MERGE_WAIT -> IDLE          (Appendix B)
 """
 from __future__ import annotations
 

@@ -194,10 +194,14 @@ def apply_op(h, me: int, row, outbox, count, cfg: DiLiConfig):
 
     if kind != OP_NOP:
         if deleg_now:
-            # delegate: forward the op with the resolved subhead ref
+            # delegate: forward the op with the resolved subhead ref and
+            # its value. The reference's forwarded row drops F_VAL, so an
+            # INSERT that reaches its owner by delegation stores 0 there;
+            # the port keeps the value (ROADMAP, Queue 3)
             fwd = M.make_row(M.MSG_OP, refs.ref_sid(deleg_ref), me,
                              a=kind, key=key, ref1=deleg_ref,
-                             sid=reply_sid, ts=slot, x2=hops + 1)
+                             sid=reply_sid, ts=slot, x2=hops + 1,
+                             val=int(row[M.F_VAL]))
             outbox, count = M.push(outbox, count, fwd)
         elif reply_sid != me:
             # completed op for a remote client: route the result home

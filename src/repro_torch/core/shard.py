@@ -13,8 +13,10 @@ the round. The reference runs the same two stages as one jitted function
 With ``cfg.range_scan`` the packed blocks are refreshed every round and
 the RANGE pre-pass (``range_scan.range_prepass``) serves scan cursors from
 them before anything mutates; the rest walk in the serial pass
-(``range_scan.h_range``). ``replication`` is not ported yet and raises; so
-does any message kind or background phase outside this slice.
+(``range_scan.h_range``). A round with ``MSG_MOVE_ITEMS`` rows replays
+their eligible runs in the batched splice (``bg.replay_prepass``, on the
+device) before the serial pass. ``replication`` is not ported yet and
+raises, and so do its message kinds.
 """
 from __future__ import annotations
 
@@ -36,13 +38,7 @@ from .host import HostShard
 from .types import DiLiConfig, RES_PENDING, SH_KEY, ShardState, clone_state
 
 LATER = {
-    M.MSG_REP_INSERT: "Move", M.MSG_REP_DELETE: "Move",
-    M.MSG_ACK_INSERT: "Move", M.MSG_ACK_DELETE: "Move",
-    M.MSG_MOVE_SH: "Move", M.MSG_MOVE_SH_ACK: "Move",
-    M.MSG_MOVE_ITEM: "Move", M.MSG_MOVE_ITEMS: "Move",
-    M.MSG_MOVE_ACK: "Move", M.MSG_SWITCH_ST: "Switch",
-    M.MSG_SWITCH_ST_ACK: "Switch", M.MSG_SWITCH_SERVER: "Switch",
-    M.MSG_REG_MERGED: "Merge", M.MSG_REPLICA_DELTA: "replication",
+    M.MSG_REPLICA_DELTA: "replication",
     M.MSG_REPLICA_INSTALL: "replication", M.MSG_REPLICA_DROP: "replication",
 }
 
@@ -91,9 +87,11 @@ def _handle_result(h, hb, me, row, outbox, count, cfg):
             outbox, count)
 
 
-def _handle_reg_split(h, hb, me, row, outbox, count, cfg):
-    outbox, count = B.h_reg_split(h, hb, me, row, outbox, count, cfg)
-    return (-1, 0, 0, SH_KEY), outbox, count
+def _wrap_bg(fn):
+    def handle(h, hb, me, row, outbox, count, cfg):
+        outbox, count = fn(h, hb, me, row, outbox, count, cfg)
+        return (-1, 0, 0, SH_KEY), outbox, count
+    return handle
 
 
 def _handle_epoch(h, hb, me, row, outbox, count, cfg):
@@ -113,7 +111,22 @@ _HANDLERS = {
     M.MSG_NONE: _noop,
     M.MSG_OP: _handle_op,
     M.MSG_RESULT: _handle_result,
-    M.MSG_REG_SPLIT: _handle_reg_split,
+    M.MSG_REP_INSERT: _wrap_bg(B.h_rep_insert),
+    M.MSG_REP_DELETE: _wrap_bg(B.h_rep_delete),
+    M.MSG_ACK_INSERT: _wrap_bg(B.h_ack_insert),
+    M.MSG_ACK_DELETE: _wrap_bg(B.h_ack_delete),
+    M.MSG_MOVE_SH: _wrap_bg(B.h_move_sh),
+    M.MSG_MOVE_SH_ACK: _wrap_bg(B.h_move_sh_ack),
+    M.MSG_MOVE_ITEM: _wrap_bg(B.h_move_item),
+    # batch-run member the replay pre-pass bounced: same field layout, so
+    # the serial per-item replay is the universal fallback
+    M.MSG_MOVE_ITEMS: _wrap_bg(B.h_move_item),
+    M.MSG_MOVE_ACK: _wrap_bg(B.h_move_ack),
+    M.MSG_SWITCH_ST: _wrap_bg(B.h_switch_st),
+    M.MSG_SWITCH_ST_ACK: _wrap_bg(B.h_switch_st_ack),
+    M.MSG_REG_SPLIT: _wrap_bg(B.h_reg_split),
+    M.MSG_SWITCH_SERVER: _wrap_bg(B.h_switch_server),
+    M.MSG_REG_MERGED: _wrap_bg(B.h_reg_merged),
     M.MSG_NET_ACK: _noop,   # transport-level; consumed before the round
     M.MSG_EPOCH: _handle_epoch,
     M.MSG_RANGE: RS.h_range,
@@ -174,7 +187,13 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
                                run_find=cfg.find_fastpath,
                                run_mut=cfg.mut_fastpath, timer=timer)
     state = pre.state
-    handled = B.replay_prepass(rows_np, cfg)
+    # migration rounds get their own pre-pass (any move row makes the round
+    # non-benign for the client one): eligible MSG_MOVE_ITEMS runs are
+    # spliced and their MOVE_ACKs pushed ahead of the serial rows' messages
+    with t("replay_prepass"):
+        mrp = B.replay_prepass(state, rows, me, outbox, count, cfg,
+                               rows_np=rows_np)
+    state, handled, outbox, count = mrp
 
     # per-entry op attribution (pre-reorder), on the device
     m_ent = state.registry.keymin.shape[0]

@@ -10,10 +10,12 @@ under ``seed``: every random stream is spawned from one root
 numbers draw for draw.
 
 RANGE scans (DESIGN.md §16) complete here: item rows accumulate until the
-terminal count says the set is whole. This slice routes directly. The
-reliable transport and nemesis, WAL durability, elastic membership
-changes, Move/Merge and read replication raise ``NotImplementedError``
-until their slices land.
+terminal count says the set is whole. Background Split, Move and Merge
+are host commands that claim a slot of a shard's table (``split``,
+``move``, ``merge``). This slice routes directly. The reliable transport
+and nemesis, WAL durability (and with it the log of background commands),
+elastic membership changes and read replication raise
+``NotImplementedError`` until their slices land.
 """
 from __future__ import annotations
 
@@ -513,10 +515,13 @@ class Cluster:
         return bool(ok)
 
     def move(self, s: int, entry_keymax: int, target: int) -> bool:
-        raise NotImplementedError(f"Move comes with {LATER_SLICE}")
+        self.bgs[s], ok = B.queue_move(self.bgs[s], entry_keymax, target)
+        return bool(ok)
 
     def merge(self, s: int, left_keymax: int, right_keymax: int) -> bool:
-        raise NotImplementedError(f"Merge comes with {LATER_SLICE}")
+        self.bgs[s], ok = B.queue_merge(self.bgs[s], left_keymax,
+                                        right_keymax)
+        return bool(ok)
 
     def replicate(self, s: int, entry_keymax: int, target: int) -> bool:
         raise NotImplementedError(f"replication comes with {LATER_SLICE}")

@@ -4,9 +4,10 @@
 
 Runs on the GPU unless ``--device cpu``. The weights are random, drawn
 from a fixed seed (no checkpoint is read). The engine attends through the
-``paged_attention`` kernel (on a CPU device, its plain twin). With two
-DiLi shards and ``--rebalance`` the balancer's first Move raises
-``NotImplementedError``: Move comes with a later slice of the port.
+``paged_attention`` kernel (on a CPU device, its plain twin). With
+``--rebalance`` the DiLi balancer runs between decode steps: it splits
+the page index once a sublist outgrows its threshold and, over two or
+more shards (``--dili-shards``), moves sublists between them.
 """
 from __future__ import annotations
 

@@ -13,7 +13,9 @@ C3  Carry-over: a reference run's states, background tables and backlog
     are carried into the port through ``repro_torch.convert`` mid-stream
     (a Split in flight) and both continue on the same feed in lockstep.
 C4  Guards: the package imports neither ``jax`` nor ``repro``; entry points
-    default to CUDA and raise without it; work outside the slice raises.
+    default to CUDA and raise without it; work outside the port so far
+    (read replication, membership changes, the transport's nemesis,
+    durability) raises.
 """
 import ast
 import os
@@ -154,6 +156,35 @@ def test_c2_two_shards_with_delays():
         OracleList().apply_batch(kinds, keys)
 
 
+def test_c2_delegated_insert_keeps_its_value():
+    """An INSERT submitted at a server that does not own its key reaches
+    the owner by delegation. The port's forwarded row carries the value;
+    the reference's drops it and stores 0 (ROADMAP, Queue 3). Results,
+    keys, stats and every other state lane agree."""
+    outs = {}
+    for pkg in ("jax", "torch"):
+        p = PKGS[pkg]
+        cl = p["sim"].Cluster(p["types"].DiLiConfig(**{**KW,
+                                                       "num_shards": 2}),
+                              **p["extra"])
+        ids = cl.submit(1, [JT.OP_INSERT] * 3, [7, 8, 9], [70, 80, 90])
+        ids += cl.submit(0, [JT.OP_INSERT], [10], [100])
+        cl.run_until_quiet(50)
+        head = cl.sublists(0)[0]["head_idx"]
+        outs[pkg] = dict(results=[cl.results[i] for i in ids],
+                         keys=cl.all_keys(), stats=dict(cl.stats),
+                         vals=cl.shard_chain(0, head, include_meta=True))
+    ref, got = outs["jax"], outs["torch"]
+    assert got["results"] == ref["results"] == [1, 1, 1, 1]
+    assert got["keys"] == ref["keys"] == [7, 8, 9, 10]
+    assert got["stats"] == ref["stats"] and got["stats"]["delegated"] == 3
+    assert [(k, v) for k, _, v in got["vals"]] == \
+        [(7, 70), (8, 80), (9, 90), (10, 100)]
+    assert [(k, v) for k, _, v in ref["vals"]] == \
+        [(7, 0), (8, 0), (9, 0), (10, 100)]
+    assert [i for k, i, _ in got["vals"]] == [i for k, i, _ in ref["vals"]]
+
+
 def test_c3_carry_over_through_convert():
     load_kinds, load_keys = JY.load_phase(200, 600, seed=7)
     mix_kinds, mix_keys = JY.mixed_phase(240, 600, 0.5, seed=8)
@@ -247,24 +278,17 @@ def test_c4_work_outside_the_slice_raises():
     state = TT.init_shard(cfg, 0, bootstrap=True, device="cpu")
     bg = TB.init_bg_table(cfg, device="cpu")
     none = np.zeros((0, TM.FIELDS), np.int32)
-    for kind in (TM.MSG_MOVE_SH, TM.MSG_REP_INSERT, TM.MSG_SWITCH_SERVER,
-                 TM.MSG_REG_MERGED, TM.MSG_MOVE_ITEMS,
-                 TM.MSG_REPLICA_DELTA):
+    for kind in (TM.MSG_REPLICA_DELTA, TM.MSG_REPLICA_INSTALL,
+                 TM.MSG_REPLICA_DROP):
         row = TM.make_row(kind, 0, 0)[None]
         with pytest.raises(NotImplementedError):
             TS.shard_round(state, bg, 0, row, none, cfg)
-    moving = bg._replace(phase=torch.tensor([TB.BG_MOVE_SH, 0],
-                                            dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="phase"):
-        TS.shard_round(state, moving, 0, none, none, cfg)
     with pytest.raises(NotImplementedError):
         TS.shard_round(state, bg, 0, none, none,
                        cfg._replace(replication=True))
 
     cl = TSIM.Cluster(cfg, device="cpu")
-    for call in (lambda: cl.move(0, JT.KEY_MAX, 1),
-                 lambda: cl.merge(0, 5, JT.KEY_MAX),
-                 lambda: cl.replicate(0, JT.KEY_MAX, 1),
+    for call in (lambda: cl.replicate(0, JT.KEY_MAX, 1),
                  lambda: cl.drop_replica(0, JT.KEY_MAX, 1),
                  lambda: cl.join_shard(),
                  lambda: TSIM.Cluster(cfg, device="cpu", nemesis=object()),

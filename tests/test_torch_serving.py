@@ -12,6 +12,15 @@ S2  A whole ``ServingEngine`` run on one DiLi shard, idle sequences
     greedy tokens, every page table handed to the decode step, the
     manager's ``_table``, the sublists and the DiLi stats equal the
     reference's, and the run really split and healed.
+S2b The chip smoke's serving run (``chip_smoke.SERVE``: 8 live requests of
+    256-512 prompt tokens, 32 parked sequences, page size 16, 24 steps,
+    a rebalance every 4th, the parked index settled over the shards
+    first in the migrating modes) over a two-shard DiLi page index, with
+    the smoke-size Qwen2-0.5B: the port's static, rescan and range modes
+    give the reference's static tokens, the range runs' DiLi stats and
+    Move commands equal the reference's, and page-index sublists moved
+    between the shards during the decode steps. (The reference's own
+    range run loses page slots on delegated INSERTs; see the test.)
 S3  The guards: ``PagePoolExhausted``, ``BatchOverflow``, double
     allocation, ``free_seq`` recycling, the sentinel and the
     never-allocated ``KeyError``; entry points default to CUDA.
@@ -155,6 +164,78 @@ def test_serving_engine_matches_reference(models, refresh_mode, use_kernel):
     assert all(len(t) == 8 for t in got["tokens"])
 
 
+# ------------------------------------------------------------------ S2b
+
+def _smoke_serve(pkg, cfg, params, mode):
+    """``chip_smoke._serve_mode``'s sequence on the CPU: park the idle
+    sequences, settle the index (not in static), admit the live ones,
+    one warm step, then ``steps`` steps with a rebalance every
+    ``rebalance_every``-th (not in static)."""
+    import importlib.util
+    import pathlib
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    serve = smoke.SERVE
+    ps, live, idle = serve["page_size"], serve["live"], serve["idle"]
+    pages = -(-(serve["prompt_hi"] + serve["max_new"]) // ps)
+    mod, extra = (JE, {}) if pkg == "jax" else (TE, dict(device="cpu"))
+    eng = mod.ServingEngine(cfg, params, page_size=ps,
+                            num_pages=(live + idle + 2) * pages,
+                            max_batch=live, dili_shards=2,
+                            refresh_mode="rescan" if mode == "static"
+                            else mode, **extra)
+    moves = []
+    move = eng.kv.backend.move
+    eng.kv.backend.move = lambda s, k, t: moves.append((s, k, t)) or \
+        move(s, k, t)
+    for sid in range(live, live + idle):
+        eng.kv.alloc_pages(sid, pages)
+    if mode != "static":
+        smoke.settle_index(eng)
+    settled = len(moves)
+    reqs = [mod.Request(seq_id=i, prompt=p, max_new=serve["max_new"])
+            for i, p in enumerate(smoke.serve_requests(cfg.vocab))]
+    for r in reqs:
+        eng.admit(r)
+    eng.step()
+    every = serve["rebalance_every"]
+    for st in range(serve["steps"]):
+        eng.step(rebalance=mode != "static" and st % every == every - 1)
+    return dict(tokens=[list(r.out) for r in reqs], moves=moves,
+                live_moves=len(moves) - settled,
+                stats=dict(eng.kv.backend.stats),
+                owners=sorted({e["owner"] for e in
+                               eng.kv.backend.sublists(0)}))
+
+
+def test_two_shard_serving_matches_reference():
+    cfg_j = j_smoke("qwen2_0_5b").replace(attn_q_chunk=512)
+    params_j = JT.init_params(cfg_j, jax.random.PRNGKey(0),
+                              dtype=jnp.float32)
+    cfg_t = get_smoke_config("qwen2_0_5b").replace(attn_q_chunk=512)
+    params_t = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params_j), cfg_t, device="cpu")
+    ref = {m: _smoke_serve("jax", cfg_j, params_j, m)
+           for m in ("static", "range")}
+    got = {m: _smoke_serve("torch", cfg_t, params_t, m)
+           for m in ("static", "rescan", "range")}
+    for m, run in got.items():
+        assert run["tokens"] == ref["static"]["tokens"], m
+    # the DiLi protocol is the reference's, Move for Move
+    assert got["range"]["stats"] == ref["range"]["stats"]
+    assert got["range"]["moves"] == ref["range"]["moves"]
+    # the reference's migrating run decodes other tokens: admission after
+    # the settle delegates INSERTs to the shard that owns the range, and
+    # its forwarded op row drops the page slot (ROADMAP, Queue 3)
+    assert ref["range"]["tokens"] != ref["static"]["tokens"]
+    for m in ("rescan", "range"):
+        assert got[m]["live_moves"] > 0 and got[m]["owners"] == [0, 1], m
+    assert not got["static"]["moves"]
+
+
 # ------------------------------------------------------------------ S3
 
 def test_manager_guards(models):
@@ -211,9 +292,10 @@ def test_serving_entry_points_default_to_cuda(models):
             make()
 
 
-def test_launch_serve_smoke_on_cpu(capsys):
+@pytest.mark.parametrize("shards", ["1", "2"])
+def test_launch_serve_smoke_on_cpu(capsys, shards):
     from repro_torch.launch import serve
     serve.main(["--smoke", "--device", "cpu", "--requests", "2",
-                "--max-new", "3", "--dili-shards", "1", "--rebalance"])
+                "--max-new", "3", "--dili-shards", shards, "--rebalance"])
     out = capsys.readouterr().out
     assert "seq 1: generated" in out
