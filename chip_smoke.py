@@ -52,6 +52,28 @@ which makes the script exit non-zero when it fails:
                replay's ``move_hits``, hops, keys per server), and
                ``hybrid_search`` launches on every server; the per-phase
                breakdown includes ``replay_prepass`` and ``bg_step``;
+  6a. nemesis — the reference's B2 schedule (corpus entry mixed-p02 on
+               two servers, key space 300, block probe) through the
+               reliable transport over a lossy wire: every result and the
+               key set equal the sequential oracle's, the round trace's
+               digest equals the reference's (``NEMESIS_B2_DIGEST``), the
+               probe answers lanes and ``hybrid_search`` runs on both
+               servers;
+  6b. crash  — corpus entry crash-during-move-copy with the block probe:
+               server 1 is killed mid-Move and recovers from its WAL and
+               snapshot (in a temporary directory) on the card; trace
+               digest ``CRASH_DIGEST``, one recovery that replays rounds,
+               the oracle; ms per recovery;
+  6c. membership — ``SCALE_3_5_2`` (3 servers → 5 → 2 under traffic, no
+               nemesis): trace digest with its ``mb`` lines
+               (``MEMBERSHIP_DIGEST``) and the final active set;
+  6d. nemesis4 — fig3b4's configuration, load and a ``NEMESIS4`` r50
+               mix through ``DiLiClient`` over the lossy wire, with server
+               1 crashed and recovered in the mix and the WAL in a
+               temporary directory: the sequential oracle, one recovery,
+               quiescence; rounds, ms per round and ops/s beside fig3b4's
+               clean mix, transport counters, WAL bytes and fsync ms per
+               round, recovery ms, the breakdown and launches per server;
   7. serving — Qwen2-0.5B at full width, f32, random weights from a fixed
                seed, through ``ServingEngine`` over a two-shard DiLi page
                index, as ``benchmarks/run.py::serving`` drives it (``SERVE``):
@@ -131,6 +153,45 @@ SCALE_KEYS = 1 << 14
 
 # rounds of the scale phase's window under the per-phase timer
 SCALE_TIMED_ROUNDS = 32
+
+# the nemesis corpus entries (tests/nemesis_corpus.json) the [nemesis] and
+# [crash] phases replay; tests/test_torch_nemesis_replay.py holds them
+# equal to the corpus
+CORPUS = {
+    "mixed-p02": dict(seed=101, n_ops=320, config=dict(
+        drop_prob=0.2, dup_prob=0.2, reorder_prob=0.2, delay_prob=0.1,
+        delay_rounds=3)),
+    "crash-during-move-copy": dict(seed=707, n_ops=280, config=dict(
+        drop_prob=0.05, dup_prob=0.05, reorder_prob=0.05,
+        crashes=[[1, 36, 70]])),
+}
+
+# round-trace digests (core.net.trace_digest) of three schedules, as the
+# JAX reference gives them: the reference's B2 run (tests/
+# test_block_probe.py: mixed-p02 on 2 servers, key space 300, block
+# probe), crash-during-move-copy with the block probe, and SCALE_3_5_2
+# (seed 11, 200 ops, no nemesis, trace on). tests/test_torch_nemesis_
+# replay.py, test_torch_durability_crash.py and test_torch_membership.py
+# recompute them from the reference and from the port on the CPU
+NEMESIS_B2_DIGEST = \
+    "c701747a083aaff238213813126c816301484d7a70f0e6ec135c1ce74d7519d4"
+CRASH_DIGEST = \
+    "a19ae5613a6be8178ab666b3af9d5598ffe33b0cb5628e06ea88880f6518da37"
+MEMBERSHIP_DIGEST = \
+    "06b395377997b04ad7847781dd52d4d1c25bc3aef06951c57c9e9556b82d46fd"
+MEMBERSHIP_ACTIVE = [0, 1]
+
+# the [nemesis4] run: fig3b4's configuration and load (1,500 keys over
+# 6,000, seed 3), then mix_ops r50 ops (seed 4), under the wire faults of
+# corpus entry mixed-p015-range, with server crash_shard down for `down`
+# rounds from crash_after rounds into the mix. The load ends at round
+# mix_start, on the card as on the CPU (the run is deterministic); the
+# crash plan is fixed before the run, so the phase fails if the load ends
+# at another round
+NEMESIS4 = dict(faults=dict(drop_prob=0.15, dup_prob=0.15, reorder_prob=0.15,
+                            delay_prob=0.075, delay_rounds=3),
+                mix_ops=1000, crash_shard=1, crash_after=20, down=30,
+                mix_start=287)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the CUDA-core f32
 # rate (also the nearest table entry for int32 compares) and the bf16
@@ -426,6 +487,211 @@ def moves_by_target(backend):
 
     backend.move = counted
     return targets
+
+
+def nemesis_cfg(num_shards: int = 4, **kw):
+    """``tests/nemesis_harness.py::small_cfg`` (the local backend's
+    size), with ``DiLiConfig`` fields overridden by ``kw``."""
+    from repro_torch.core.types import DiLiConfig
+    return DiLiConfig(num_shards=num_shards, pool_capacity=4096,
+                      max_sublists=32, max_ctrs=32, max_scan=4096,
+                      batch_size=16, mailbox_cap=256, move_batch=8)._replace(
+                          **kw)
+
+
+def nemesis_differential(seed: int, nemesis, *, n_ops: int = 600,
+                         key_space: int = 500, num_shards: int = 4,
+                         ops_per_round: int = 8, split_threshold: int = 24,
+                         drain_rounds: int = 12000, cfg_overrides=None,
+                         scan_every: int = 0, device="cuda",
+                         durability=None, timer=None) -> dict:
+    """``tests/nemesis_harness.py::run_differential`` on the port's local
+    backend: a load of keys, then rounds of mixed FIND/INSERT/REMOVE
+    through ``DiLiClient`` (per-key FIFO admission makes the sequential
+    oracle exact) with a seeded ``Balancer`` racing Splits, Moves and
+    Merges against them, under ``nemesis``; RANGE scans every
+    ``scan_every`` batches. Same draws, same order, so its round trace
+    equals the reference's. Returns the harness's result fields and the
+    backend."""
+    import numpy as np
+    from repro_torch.api import DiLiClient, LocalBackend
+    from repro_torch.core.balancer import Balancer
+    from repro_torch.core.oracle import OracleList
+    from repro_torch.core.types import OP_FIND, OP_INSERT, OP_REMOVE
+
+    cfg = nemesis_cfg(num_shards, **(cfg_overrides or {}))
+    if scan_every:
+        cfg = cfg._replace(
+            range_scan=True,
+            mailbox_cap=max(cfg.mailbox_cap,
+                            cfg.range_lanes * (cfg.range_batch + 1) + 64))
+    backend = LocalBackend(cfg, seed=seed, nemesis=nemesis,
+                           durability=durability, device=device, timer=timer)
+    bal = Balancer(backend, split_threshold=split_threshold,
+                   merge_threshold=6, rng=backend.balancer_rng)
+    client = DiLiClient(backend, balance=bal, balance_every=3)
+    oracle = OracleList()
+    rng = np.random.default_rng(seed + 1)
+
+    n_load = min(max(key_space // 4, 20), 150)
+    base = rng.permutation(np.arange(1, key_space))[:n_load].tolist()
+    futs, exps = [client.insert_batch(base)], [[True] * len(base)]
+    oracle.apply_batch([OP_INSERT] * len(base), base)
+    client.drain(drain_rounds, run_balance=True)
+
+    srng = np.random.default_rng(seed + 2)
+    scans = []
+    done = batch_no = 0
+    while done < n_ops:
+        k = min(ops_per_round, n_ops - done)
+        kinds = rng.choice([OP_FIND, OP_INSERT, OP_REMOVE], k).tolist()
+        keys = rng.integers(1, key_space, k).tolist()
+        futs.append(client.submit(kinds, keys))
+        exps.append(oracle.apply_batch(kinds, keys))
+        if scan_every and batch_no % scan_every == 0:
+            lo = int(srng.integers(0, key_space))
+            hi = lo + int(srng.integers(1, key_space // 2))
+            limit = int(srng.integers(1, 64))
+            want = sorted(x for x in oracle.snapshot() if lo <= x < hi)
+            scans.append((lo, hi, limit, want[:limit],
+                          client.range(lo, hi, limit)))
+        client.pump()
+        done += k
+        batch_no += 1
+    client.drain(drain_rounds)
+
+    scan_mismatches = [(lo, hi, limit, want, got)
+                       for lo, hi, limit, want, fut in scans
+                       if (got := [kv[0] for kv in fut.items(wait=False)])
+                       != want]
+    mismatches = [(fut.kind, fut.key, e, got)
+                  for batch, exp in zip(futs, exps)
+                  for fut, got, e in zip(batch, batch.results(), exp)
+                  if bool(got) != e]
+    cl = backend.cluster
+    final = backend.all_keys()
+    return dict(mismatches=mismatches, scan_mismatches=scan_mismatches,
+                n_scans=len(scans), final_keys=final,
+                oracle_keys=sorted(oracle.snapshot()),
+                keys_match=final == sorted(oracle.snapshot()),
+                quiescent=backend.quiescent(), rounds=cl.round_no,
+                net_stats=dict(backend.net.stats),
+                nemesis_stats=dict(backend.net.nemesis.stats),
+                trace=cl.round_trace, backend=backend)
+
+
+def check_differential(what: str, res: dict) -> None:
+    """``tests/nemesis_harness.py::check``: every result and scan, the
+    final key set and quiescence."""
+    check(not res["mismatches"],
+          f"{what}: results differ from the oracle {res['mismatches'][:5]}")
+    check(not res["scan_mismatches"],
+          f"{what}: scans differ from the oracle "
+          f"{res['scan_mismatches'][:3]}")
+    check(res["keys_match"], f"{what}: the final key set differs from the "
+                             f"oracle's")
+    check(res["quiescent"], f"{what}: the backend did not quiesce")
+
+
+# tests/membership_harness.py::SCALE_3_5_2: (round due, op, shard); an
+# event fires once the cluster is past its round and no change is in
+# flight (joins take the lowest retired slot, retires the highest active)
+SCALE_3_5_2 = ((10, "join", None), (30, "join", None), (60, "retire", None),
+               (90, "retire", None), (120, "retire", None))
+
+
+def membership_differential(seed: int, nemesis, *, schedule=SCALE_3_5_2,
+                            n_ops: int = 600, key_space: int = 500,
+                            capacity: int = 6, initial_shards: int = 3,
+                            ops_per_round: int = 8,
+                            drain_rounds: int = 20000, trace: bool = True,
+                            device="cuda") -> dict:
+    """``tests/membership_harness.py::run_membership_differential`` on the
+    port's local backend: a cluster of ``capacity`` slots boots with
+    ``initial_shards`` active, and ``schedule`` joins and retires shards
+    under continuous mixed traffic through ``DiLiClient``. The round trace
+    is on (``trace``) even without a nemesis: its ``mb`` lines witness the
+    membership changes. Returns the harness's result fields and the
+    backend."""
+    import numpy as np
+    from repro_torch.api import DiLiClient, LocalBackend
+    from repro_torch.core.balancer import Balancer
+    from repro_torch.core.oracle import OracleList
+    from repro_torch.core.types import OP_FIND, OP_INSERT, OP_REMOVE
+
+    backend = LocalBackend(nemesis_cfg(capacity), seed=seed, nemesis=nemesis,
+                           initial_shards=initial_shards, trace=trace,
+                           device=device)
+    bal = Balancer(backend, split_threshold=24, merge_threshold=6,
+                   rng=backend.balancer_rng)
+    client = DiLiClient(backend, balance=bal, balance_every=3)
+    oracle = OracleList()
+    rng = np.random.default_rng(seed + 1)
+    mb = backend.membership
+    cl = backend.cluster
+
+    n_load = min(max(key_space // 4, 20), 150)
+    base = rng.permutation(np.arange(1, key_space))[:n_load].tolist()
+    futs, exps = [client.insert_batch(base)], [[True] * len(base)]
+    oracle.apply_batch([OP_INSERT] * len(base), base)
+    client.drain(drain_rounds, run_balance=True)
+
+    pending = list(schedule)
+    fired = []
+
+    def maybe_fire():
+        if not pending or mb.joining or mb.draining:
+            return
+        due, op, shard = pending[0]
+        if cl.round_no < due:
+            return
+        if op == "join":
+            shard = backend.join_shard(shard)
+        else:
+            shard = max(mb.active) if shard is None else shard
+            backend.retire_shard(shard)
+        fired.append((cl.round_no, op, shard))
+        pending.pop(0)
+
+    done = stall = 0
+    while done < n_ops or pending:
+        maybe_fire()
+        if done < n_ops:
+            k = min(ops_per_round, n_ops - done)
+            kinds = rng.choice([OP_FIND, OP_INSERT, OP_REMOVE], k).tolist()
+            keys = rng.integers(1, key_space, k).tolist()
+            futs.append(client.submit(kinds, keys))
+            exps.append(oracle.apply_batch(kinds, keys))
+            done += k
+            client.pump()
+        else:
+            # the op stream is exhausted but the schedule is not: finish
+            # the change in flight, then idle-step to the next due round
+            client.settle(max_rounds=drain_rounds)
+            if pending and not (mb.joining or mb.draining) \
+                    and cl.round_no < pending[0][0]:
+                client.pump()
+            stall += 1
+            check(stall <= drain_rounds,
+                  f"membership schedule stalled: fired={fired} "
+                  f"pending={pending} view={mb.view()}")
+    client.drain(drain_rounds)
+    client.settle(max_rounds=drain_rounds)
+
+    mismatches = [(fut.kind, fut.key, e, got)
+                  for batch, exp in zip(futs, exps)
+                  for fut, got, e in zip(batch, batch.results(), exp)
+                  if bool(got) != e]
+    final = backend.all_keys()
+    n_joins = sum(1 for _, op, _ in fired if op == "join")
+    return dict(mismatches=mismatches, scan_mismatches=[],
+                final_keys=final, oracle_keys=sorted(oracle.snapshot()),
+                keys_match=final == sorted(oracle.snapshot()),
+                quiescent=backend.quiescent(), rounds=cl.round_no,
+                schedule_done=not pending, fired=fired, view=mb.view(),
+                mb_log=list(mb.log),
+                expected_active=initial_shards + 2 * n_joins - len(fired),
+                trace=cl.round_trace, backend=backend)
 
 
 # ------------------------------------------------------------------ phases
@@ -1259,6 +1525,274 @@ def phase_scale4(n_keys: int) -> dict:
                 spread=spread, profile=prof)
 
 
+def nemesis4_cfg():
+    """fig3b4's configuration: ``_bench_cfg(4, block_probe=True)``."""
+    return bench_cfg(num_shards=4)
+
+
+def nemesis4_nemesis():
+    """``NEMESIS4``'s wire faults and its one crash, at absolute rounds."""
+    from repro_torch.core.net import CrashPlan, NemesisConfig
+    crash = NEMESIS4["mix_start"] + NEMESIS4["crash_after"]
+    return NemesisConfig(**NEMESIS4["faults"], crashes=(CrashPlan(
+        NEMESIS4["crash_shard"], crash, crash + NEMESIS4["down"]),))
+
+
+def nemesis4_run(device, durability, *, mix_ops: int, timer=None) -> dict:
+    """fig3b4's load and r50 mix, all through ``DiLiClient`` (per-key FIFO
+    admission makes the sequential oracle exact), the balancer every 4th
+    round, over the reliable transport under ``nemesis4_nemesis()``, with
+    a WAL and snapshots in ``durability``. Returns the results, the
+    oracle's, the round the mix started and the backend."""
+    from repro_torch.api import DiLiClient, LocalBackend
+    from repro_torch.core.balancer import Balancer
+    from repro_torch.core.oracle import OracleList
+    from repro_torch.data.ycsb import load_phase, mixed_phase
+
+    backend = LocalBackend(nemesis4_cfg(), nemesis=nemesis4_nemesis(),
+                           durability=durability, device=device, timer=timer)
+    client = DiLiClient(backend, balance=Balancer(backend), balance_every=4)
+    oracle = OracleList()
+    load_kinds, load_keys = load_phase(1500, 6000, seed=3)
+    futs = [client.submit(load_kinds.tolist(), load_keys.tolist())]
+    exps = [oracle.apply_batch(load_kinds.tolist(), load_keys.tolist())]
+    client.drain(4000, run_balance=True)
+    mix_start = backend.cluster.round_no
+    t0 = time.perf_counter()
+    kinds, keys = mixed_phase(mix_ops, 6000, 0.5, seed=4)
+    futs.append(client.submit(kinds.tolist(), keys.tolist()))
+    exps.append(oracle.apply_batch(kinds.tolist(), keys.tolist()))
+    client.drain(4000, run_balance=True)
+    return dict(got=[bool(v) for f in futs for v in f.results(wait=False)],
+                want=[bool(v) for e in exps for v in e],
+                keys=backend.all_keys(), oracle_keys=sorted(oracle.snapshot()),
+                mix_start=mix_start, mix_t0=t0, backend=backend)
+
+
+def _launch_check(what: str, per_server: dict, servers) -> None:
+    check(all(per_server.get(s, 0) > 0 for s in servers),
+          f"{what}: hybrid_search launches per server {per_server}: the "
+          f"pre-pass of a server of {list(servers)} never reached the "
+          f"kernel")
+
+
+def phase_nemesis() -> dict:
+    """The reference's B2 schedule (``tests/test_block_probe.py``): corpus
+    entry mixed-p02 on two servers with the block probe, under the lossy
+    wire. Results and keys equal the oracle's, the round trace's digest
+    equals ``NEMESIS_B2_DIGEST`` and the kernel runs on both servers."""
+    import torch
+    from repro_torch.core.net import NemesisConfig, trace_digest
+    from repro_torch.kernels import ops as K
+
+    e = CORPUS["mixed-p02"]
+    K.hybrid_search.launches = 0
+    with ShardLaunches() as per_server:
+        t0 = time.perf_counter()
+        res = nemesis_differential(
+            e["seed"], NemesisConfig.from_dict(e["config"]),
+            n_ops=e["n_ops"],
+            num_shards=2, key_space=300, cfg_overrides={"block_probe": True},
+            device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = K.hybrid_search.launches
+    check_differential("nemesis", res)
+    digest = trace_digest(res["trace"])
+    check(digest == NEMESIS_B2_DIGEST,
+          f"nemesis: round-trace digest {digest} != the reference's "
+          f"{NEMESIS_B2_DIGEST}")
+    blk = res["backend"].stats["blk_hits"]
+    check(blk > 0, "nemesis: the block probe answered no lane")
+    _launch_check("nemesis", per_server, range(2))
+    log(f"[nemesis] mixed-p02 (seed {e['seed']}, {e['n_ops']} ops) on 2 "
+        f"servers, block probe: {res['rounds']} rounds in {dt:.2f} s "
+        f"({1e3 * dt / res['rounds']:.3f} ms/round); trace digest equals "
+        f"the reference's; blk_hits {blk}; transport {res['net_stats']}, "
+        f"wire {res['nemesis_stats']}; hybrid_search launches {launches}, "
+        f"per server {dict(sorted(per_server.items()))}")
+    return dict(rounds=res["rounds"], seconds=dt, launches=launches,
+                per_server=dict(per_server))
+
+
+class _TimedRecovery:
+    """Wraps a ``Durability``'s ``recover`` to time each recovery (the
+    snapshot load plus the WAL replay, device synced)."""
+
+    def __init__(self, dur):
+        import torch
+        self.ms = []
+        recover = dur.recover
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = recover(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        dur.recover = timed
+
+
+def phase_crash() -> dict:
+    """Corpus entry crash-during-move-copy with the block probe: server 1
+    dies mid-Move and recovers from its WAL and snapshot on the card. The
+    trace digest equals ``CRASH_DIGEST``, one recovery replays rounds, and
+    the oracle holds."""
+    import tempfile
+    import torch
+    from repro_torch.core.durability import Durability
+    from repro_torch.core.net import NemesisConfig, trace_digest
+    from repro_torch.kernels import ops as K
+
+    e = CORPUS["crash-during-move-copy"]
+    cfg = nemesis_cfg(block_probe=True)
+    with tempfile.TemporaryDirectory(prefix="dili-wal-") as wal_dir:
+        dur = Durability(wal_dir, cfg)
+        rec = _TimedRecovery(dur)
+        nem = NemesisConfig.from_dict(e["config"])
+        K.hybrid_search.launches = 0
+        with ShardLaunches() as per_server:
+            t0 = time.perf_counter()
+            res = nemesis_differential(
+                e["seed"], nem, n_ops=e["n_ops"],
+                cfg_overrides={"block_probe": True}, device="cuda",
+                durability=dur)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = K.hybrid_search.launches
+    check_differential("crash", res)
+    digest = trace_digest(res["trace"])
+    check(digest == CRASH_DIGEST,
+          f"crash: round-trace digest {digest} != the reference's "
+          f"{CRASH_DIGEST}")
+    st = dur.stats
+    check(st["recoveries"] == 1 and len(rec.ms) == 1,
+          f"crash: {st['recoveries']} recoveries, want 1")
+    check(st["replayed_rounds"] > 0, "crash: recovery replayed no round")
+    # the kernel runs where a round's client lanes meet a valid block:
+    # here it must run on the server that crashed and recovered; in this
+    # schedule server 3's pre-pass never reaches it
+    _launch_check("crash", per_server, (e["config"]["crashes"][0][0],))
+    log(f"[crash] crash-during-move-copy (seed {e['seed']}, server 1 down "
+        f"rounds 36-70) on 4 servers, block probe: {res['rounds']} rounds "
+        f"in {dt:.2f} s ({1e3 * dt / res['rounds']:.3f} ms/round); trace "
+        f"digest equals the reference's; 1 recovery in {rec.ms[0]:.1f} ms "
+        f"(snapshot load + replay of {st['replayed_rounds']} rounds, "
+        f"{rec.ms[0] / st['replayed_rounds']:.2f} ms per replayed round); "
+        f"durability {st}; hybrid_search launches {launches}, per server "
+        f"{dict(sorted(per_server.items()))}")
+    return dict(rounds=res["rounds"], seconds=dt, launches=launches,
+                per_server=dict(per_server), recovery_ms=rec.ms[0],
+                replayed_rounds=st["replayed_rounds"])
+
+
+def phase_membership() -> dict:
+    """``SCALE_3_5_2`` on ``LocalBackend`` with no nemesis: 3 servers grow
+    to 5 and shrink to 2 under client traffic. The trace (its ``mb``
+    lines included) digests to ``MEMBERSHIP_DIGEST`` and the final active
+    set is the harness's."""
+    import torch
+    from repro_torch.core.net import trace_digest
+
+    t0 = time.perf_counter()
+    res = membership_differential(11, None, n_ops=200, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_differential("membership", res)
+    check(res["schedule_done"], f"membership: schedule stalled "
+                                f"{res['fired']}")
+    v = res["view"]
+    check(not v["joining"] and not v["draining"]
+          and v["active"] == MEMBERSHIP_ACTIVE
+          and len(v["active"]) == res["expected_active"],
+          f"membership: final view {v}, want active {MEMBERSHIP_ACTIVE}")
+    digest = trace_digest(res["trace"])
+    check(digest == MEMBERSHIP_DIGEST,
+          f"membership: round-trace digest {digest} != the reference's "
+          f"{MEMBERSHIP_DIGEST}")
+    log(f"[membership] SCALE_3_5_2 (seed 11, 200 ops, capacity 6): "
+        f"{res['rounds']} rounds in {dt:.2f} s "
+        f"({1e3 * dt / res['rounds']:.3f} ms/round); fired {res['fired']}; "
+        f"active {v['active']} at epoch {v['epoch']}; trace digest (mb "
+        f"lines included) equals the reference's")
+    return dict(rounds=res["rounds"], seconds=dt)
+
+
+def phase_nemesis4(f3b: dict) -> dict:
+    """fig3b4's configuration under the lossy wire with one crash: the
+    load and the r50 mix through ``DiLiClient``, the WAL in a temporary
+    directory. Every result and the key set equal the sequential oracle's,
+    one recovery, the cluster quiesces; compared with fig3b4's clean mix
+    of this run."""
+    import tempfile
+    import torch
+    from repro_torch.core.durability import Durability, DurabilityConfig
+    from repro_torch.kernels import ops as K
+    from repro_torch.timing import PhaseTimer
+
+    timer = PhaseTimer("cuda")
+    with tempfile.TemporaryDirectory(prefix="dili-wal-") as wal_dir:
+        dur = Durability(wal_dir, nemesis4_cfg(),
+                         DurabilityConfig(snapshot_every=64))
+        rec = _TimedRecovery(dur)
+        K.hybrid_search.launches = 0
+        with ShardLaunches() as per_server:
+            t0 = time.perf_counter()
+            r = nemesis4_run("cuda", dur, mix_ops=NEMESIS4["mix_ops"],
+                             timer=timer)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        launches = K.hybrid_search.launches
+    backend = r["backend"]
+    cl = backend.cluster
+    check(r["mix_start"] == NEMESIS4["mix_start"],
+          f"nemesis4: the load ended at round {r['mix_start']}, not "
+          f"{NEMESIS4['mix_start']}: the crash would miss the mix")
+    check(r["got"] == r["want"], "nemesis4: results differ from the "
+                                 "sequential oracle")
+    check(r["keys"] == r["oracle_keys"], "nemesis4: the key set differs "
+                                         "from the sequential oracle's")
+    check(backend.quiescent(), "nemesis4: the cluster did not quiesce")
+    check(dur.stats["recoveries"] == 1 and len(rec.ms) == 1,
+          f"nemesis4: {dur.stats['recoveries']} recoveries, want 1")
+    _launch_check("nemesis4", per_server, range(4))
+    rounds = cl.round_no
+    mix_rounds = rounds - r["mix_start"]
+    dt = t1 - r["mix_t0"]
+    bd = breakdown(timer, rounds)
+    net, wire = backend.net.stats, backend.net.nemesis.stats
+    fsync_ms = 1e3 * dur.fsync_seconds() / rounds
+    log(f"[nemesis4] fig3b4 config, 4 servers, lossy wire, server 1 down "
+        f"{NEMESIS4['down']} rounds from mix round "
+        f"{NEMESIS4['crash_after']}: load + settle {r['mix_start']} rounds "
+        f"in {r['mix_t0'] - t0:.1f} s; mix of {NEMESIS4['mix_ops']} ops "
+        f"{mix_rounds} rounds in {dt:.2f} s "
+        f"({1e3 * dt / mix_rounds:.3f} ms/round, "
+        f"{NEMESIS4['mix_ops'] / dt:.1f} ops/s) against fig3b4's clean mix "
+        f"{f3b['ms_per_round']:.3f} ms/round, {f3b['ops_per_s']:.1f} ops/s; "
+        f"results and keys equal the oracle's")
+    log(f"[nemesis4] transport: retransmits {net['retransmits']}, drops "
+        f"{wire['dropped']}, dups {wire['duplicated']}, held "
+        f"{wire['delayed']}, dup_dropped {net['dup_dropped']}, sent "
+        f"{net['sent']}; WAL {dur.wal_bytes()} bytes "
+        f"({dur.wal_bytes() / rounds:.0f} per round), fsync "
+        f"{fsync_ms:.3f} ms per round ({dur.fsync_count()} fsyncs); "
+        f"recovery {rec.ms[0]:.1f} ms, {dur.stats['replayed_rounds']} "
+        f"rounds replayed")
+    log(f"[nemesis4] per-round ms over all {rounds} rounds: "
+        f"{json.dumps(bd)}; hybrid_search launches {launches}, per server "
+        f"{dict(sorted(per_server.items()))}; phase {t1 - t0:.1f} s")
+    return dict(rounds=rounds, mix_rounds=mix_rounds,
+                ms_per_round=1e3 * dt / mix_rounds,
+                ops_per_s=NEMESIS4["mix_ops"] / dt, launches=launches,
+                per_server=dict(per_server), recovery_ms=rec.ms[0],
+                replayed_rounds=dur.stats["replayed_rounds"],
+                fsync_ms_per_round=fsync_ms, wal_bytes=dur.wal_bytes(),
+                breakdown=bd)
+
+
 def serve_requests(vocab: int):
     """The serving phase's live requests: prompt lengths and tokens drawn
     from ``SERVE["seed"]``."""
@@ -1561,6 +2095,13 @@ def main() -> None:
     phase_client()
     reb = phase_rebalance()
     f3b = phase_fig3b4()
+    t_ft = time.perf_counter()
+    nem = phase_nemesis()
+    crash = phase_crash()
+    mship = phase_membership()
+    nem4 = phase_nemesis4(f3b)
+    log(f"[fault] the four fault-tolerance phases in "
+        f"{time.perf_counter() - t_ft:.1f} s")
     serving = phase_serving()
     scale = phase_scale(SCALE_KEYS, SCALE_TIMED_ROUNDS)
     scale4 = phase_scale4(SCALE4_KEYS)
@@ -1583,6 +2124,12 @@ def main() -> None:
         launches_fig3b4_per_server=f3b["per_server"],
         launches_scale4=scale4["launches"],
         launches_scale4_per_server=scale4["per_server"],
+        launches_nemesis=nem["launches"],
+        launches_nemesis_per_server=nem["per_server"],
+        launches_crash=crash["launches"],
+        launches_crash_per_server=crash["per_server"],
+        launches_nemesis4=nem4["launches"],
+        launches_nemesis4_per_server=nem4["per_server"],
         walk_steps_fig3a=f3["plain"]["walk_steps"],
         walk_steps_scale=scale["walk_steps"]), dict(
         name="paged_attention", route="cuda",
@@ -1606,6 +2153,11 @@ def main() -> None:
     log(f"[rebalance] Move rounds by K "
         f"{ {k: r['rounds'] for k, r in reb.items()} }, ms "
         f"{ {k: round(r['ms'], 1) for k, r in reb.items()} }")
+    log(f"[fault] nemesis {nem['rounds']} rounds, crash {crash['rounds']} "
+        f"(recovery {crash['recovery_ms']:.1f} ms), membership "
+        f"{mship['rounds']}, nemesis4 {nem4['rounds']} (mix "
+        f"{nem4['ms_per_round']:.3f} ms/round, recovery "
+        f"{nem4['recovery_ms']:.1f} ms)")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi[0], flush=True)

@@ -7,7 +7,10 @@ src_shard)`` completions (recycling their ids), ``quiescent`` says no
 message or background op is in flight, and the balance surface
 (``sublists``/``middle_item``/``split``/``move``/``merge`` plus
 ``states``/``bgs``/``cfg``/``n``) is the duck type ``core.balancer``
-drives. The SPMD backend comes with a later slice of the port.
+drives. With ``nemesis=`` it routes through the reliable transport, with
+``durability=`` it journals to a WAL (and ``CrashPlan``s recover from
+it), and ``join_shard``/``retire_shard`` change membership under traffic.
+The SPMD backend comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ class LocalBackend:
     def __init__(self, cfg: Optional[DiLiConfig] = None, *,
                  cluster: Optional[Cluster] = None, seed: int = 0,
                  delay_prob: float = 0.0, nemesis=None,
+                 retransmit_after: int = 4, net_window: int = 4096,
                  key_lo: int = KEY_MIN, key_hi: int = KEY_MAX,
                  initial_shards: Optional[int] = None,
                  trace: Optional[bool] = None, durability=None,
@@ -42,7 +46,10 @@ class LocalBackend:
             if cfg is None:
                 raise ValueError("LocalBackend needs a DiLiConfig or Cluster")
             cluster = Cluster(cfg, seed=seed, delay_prob=delay_prob,
-                              nemesis=nemesis, key_lo=key_lo, key_hi=key_hi,
+                              nemesis=nemesis,
+                              retransmit_after=retransmit_after,
+                              net_window=net_window,
+                              key_lo=key_lo, key_hi=key_hi,
                               initial_shards=initial_shards, trace=trace,
                               durability=durability, device=device,
                               timer=timer)
@@ -128,7 +135,11 @@ class LocalBackend:
 
     def quiescent(self) -> bool:
         cl = self.cluster
+        if cl.membership.crashed:
+            return False        # keep stepping toward the scheduled restart
         if any(b.shape[0] for b in cl.backlog):
+            return False
+        if cl.net is not None and not cl.net.idle():
             return False
         return not any(B.any_active(bg) for bg in cl.bgs)
 

@@ -474,6 +474,7 @@ def local_client(cfg, **kw) -> DiLiClient:
     """Convenience: a ``DiLiClient`` over a fresh ``LocalBackend`` (on
     ``device=`` — CUDA unless the caller asks for the CPU)."""
     backend_kw = {k: kw.pop(k) for k in
-                  ("seed", "delay_prob", "nemesis", "key_lo", "key_hi",
-                   "initial_shards", "trace", "device", "timer") if k in kw}
+                  ("seed", "delay_prob", "nemesis", "retransmit_after",
+                   "net_window", "key_lo", "key_hi", "initial_shards",
+                   "trace", "durability", "device", "timer") if k in kw}
     return DiLiClient(LocalBackend(cfg, **backend_kw), **kw)

@@ -346,3 +346,96 @@ class Balancer:
                             issued["drop"] += 1
                         repsets.pop(kmax, None)
         return issued
+
+
+class AutoscalePolicy:
+    """Elastic sizing over a membership-aware backend (DESIGN.md §13):
+    the human does not choose the shard count.
+
+    Wraps a ``Balancer`` — every pass first runs the inner policy (splits,
+    moves, evacuations), then considers at most *one* membership change:
+
+      * **join** when total load exceeds ``join_headroom`` (125%) of what
+        the current active set should carry at ``target_load`` keys per
+        shard — a retired slot is admitted and the inner balancer's next
+        passes drain sublists onto it;
+      * **retire** the least-loaded active shard when total load falls
+        below ``retire_headroom`` (45%) of the active set's target
+        capacity.
+
+    The wide hysteresis band between the two thresholds, plus a
+    ``cooldown`` of quiet passes after every change and the one-change-
+    at-a-time rule (no decision while any shard is joining or draining),
+    keeps the policy from flapping when load hovers near a boundary.
+
+    Returned counts include ``join``/``retire``, so ``DiLiClient.settle``
+    treats a pass that resized the cluster as progress, not a fixed point.
+    """
+
+    def __init__(self, backend, *, target_load: int,
+                 join_headroom: float = 1.25, retire_headroom: float = 0.45,
+                 min_shards: int = 1, max_shards: Optional[int] = None,
+                 cooldown: int = 3, balancer: Optional[Balancer] = None,
+                 rng=None, rate_weight: float = 1.0):
+        if not hasattr(backend, "membership"):
+            raise ValueError(
+                "AutoscalePolicy needs a membership-aware backend "
+                "(Cluster / LocalBackend)")
+        self.cl = backend
+        self.balancer = (balancer if balancer is not None
+                         else Balancer(backend, rng=rng,
+                                       rate_weight=rate_weight))
+        self.target_load = int(target_load)
+        self.join_headroom = float(join_headroom)
+        self.retire_headroom = float(retire_headroom)
+        self.min_shards = int(min_shards)
+        self.max_shards = max_shards
+        self.cooldown = int(cooldown)
+        # same load model as the inner balancer: op-rate EWMA weighted on
+        # top of the key count (rate decays to zero at rest, where the
+        # sizing decision falls back to pure key counts)
+        self.rate_weight = float(rate_weight)
+        self._cool = 0
+
+    def _load(self, s: int) -> float:
+        rates = getattr(self.cl, "op_rate_ewma", None) or {}
+        return sum(e["size"] + self.rate_weight
+                   * rates.get(e["keymax"], 0.0)
+                   for e in self.cl.sublists(s)
+                   if e["owner"] == s and e["size"] is not None
+                   and not e["switched"])
+
+    def step(self) -> dict:
+        issued = self.balancer.step()
+        issued.setdefault("join", 0)
+        issued.setdefault("retire", 0)
+        mb = self.cl.membership
+        if self._cool > 0:
+            # a cooling pass is NOT a fixed point — without the marker,
+            # DiLiClient.settle would read the all-zero counts as "done"
+            # and stop before the post-cooldown decision ever runs
+            self._cool -= 1
+            issued["cooldown"] = 1
+            return issued
+        if mb.joining or mb.draining:
+            # one membership change at a time: the previous one must
+            # finish (promote / retire) before the next decision —
+            # marked as progress for the same reason as cooldown
+            issued["inflight"] = 1
+            return issued
+        loads = {s: self._load(s) for s in mb.active}
+        total = sum(loads.values())
+        n = len(mb.active)
+        cap = mb.capacity if self.max_shards is None else self.max_shards
+        if (total > self.join_headroom * self.target_load * n
+                and n < cap and mb.retired):
+            self.cl.join_shard()
+            issued["join"] += 1
+            self._cool = self.cooldown
+        elif (total < self.retire_headroom * self.target_load * n
+                and n > self.min_shards):
+            victim = min(mb.active, key=lambda s: (loads[s], s))
+            self.cl.retire_shard(victim)
+            issued["retire"] += 1
+            self._cool = self.cooldown
+        return issued

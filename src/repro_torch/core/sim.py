@@ -5,21 +5,29 @@ The single-host execution backend of the port. Each round every shard runs
 outboxes are routed host-side into next-round inboxes (per-(src,dst) FIFO
 preserved; overflow is backlogged, never dropped). With ``delay_prob > 0``
 whole (src,dst) channels are held back for a round, deterministically
-under ``seed``: every random stream is spawned from one root
-``SeedSequence`` exactly as in the reference, so a run draws the same
-numbers draw for draw.
+under ``seed``.
+
+With ``nemesis=NemesisConfig(...)`` the cluster routes through the
+reliable transport (``core.net``, DESIGN.md §11): the wire below it may
+drop, duplicate, reorder and delay frames, and the transport restores
+exactly-once in-order delivery. ``CrashPlan``s kill and restart shards,
+which recover from a per-shard WAL and snapshots (``core.durability``,
+§14); ``join_shard``/``retire_shard`` change membership under traffic
+(§13). Every random stream is spawned from one root ``SeedSequence``
+exactly as in the reference, so a run — its per-round ``round_trace``
+included — is a pure function of ``(seed, config)`` and equal to the
+reference's line for line.
 
 RANGE scans (DESIGN.md §16) complete here: item rows accumulate until the
 terminal count says the set is whole. Background Split, Move and Merge
 are host commands that claim a slot of a shard's table (``split``,
-``move``, ``merge``). This slice routes directly. The reliable transport
-and nemesis, WAL durability (and with it the log of background commands),
-elastic membership changes and read replication raise
-``NotImplementedError`` until their slices land.
+``move``, ``merge``). Read replication raises ``NotImplementedError``
+until its slice lands.
 """
 from __future__ import annotations
 
 import contextlib
+import tempfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,13 +38,18 @@ from . import messages as M
 from . import range_scan as RS
 from . import refs
 from . import registry as reg_ops
-from .membership import Membership
-from .net.digest import trace_entry
+from .durability import Durability, validate_crash_plans, wal
+from .durability.recovery import completions_array
+from .membership import (Membership, epoch_broadcast, moves_targeting,
+                         owned_entry_count)
+from .net import Nemesis, NemesisConfig, Transport, trace_entry
 from .shard import shard_round
 from .types import (DiLiConfig, KEY_MAX, KEY_MIN, SH_KEY, ST_KEY,
                     ShardState, init_shard, resolve_device)
 
 LATER_SLICE = "a later slice of the port (ROADMAP Queue 1)"
+
+_NO_ROWS = np.zeros((0, M.FIELDS), np.int32)
 
 
 class OutboxOverflow(RuntimeError):
@@ -193,24 +206,30 @@ def registry_entries(state: ShardState):
 
 class Cluster:
     def __init__(self, cfg: DiLiConfig, *, seed: int = 0,
-                 delay_prob: float = 0.0, nemesis=None,
+                 delay_prob: float = 0.0,
+                 nemesis: Optional[NemesisConfig] = None,
+                 retransmit_after: int = 4, net_window: int = 4096,
                  trace: Optional[bool] = None,
                  key_lo: int = KEY_MIN, key_hi: int = KEY_MAX,
                  initial_shards: Optional[int] = None,
                  durability=None, device="cuda", timer=None):
-        for name, val in (("nemesis", nemesis), ("durability", durability),
-                          ("initial_shards", initial_shards)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"Cluster({name}=...) comes with {LATER_SLICE}")
         self.cfg = cfg
         self.n = cfg.num_shards
         self.device = resolve_device(device)
         self.timer = timer
-        self.membership = Membership(self.n, None)
+        # elastic membership (DESIGN.md §13): cfg.num_shards is the
+        # capacity; every capacity shard is constructed and stepped each
+        # round, and which of them are members is a host-side overlay.
+        # initial_shards=None means all-active
+        self.membership = Membership(self.n, initial_shards)
+        self._mb_logged = 0
+        # host->shard control rows (MSG_EPOCH broadcasts) staged between
+        # rounds; flushed into the routed message stream in step() so they
+        # ride the same (partitionable, retransmitted) wire as the rest
+        self._ctrl_out: List[Tuple[int, np.ndarray]] = []
+        # shard 0 bootstraps the full key range; the others (initially
+        # retired slots too) hold registry replicas routing to it
         peers0 = self.membership.mask()
-        # shard 0 bootstraps the full key range; the others hold registry
-        # replicas routing to it
         self.states: List[ShardState] = [
             init_shard(cfg, s, bootstrap=(s == 0), key_lo=key_lo,
                        key_hi=key_hi, peers_mask=peers0, device=self.device)
@@ -242,14 +261,53 @@ class Cluster:
         self.round_no = 0
         self.delay_prob = delay_prob
         # one splittable root, as in the reference: independent child
-        # streams for channel delays, the nemesis and balancer tie-breaks
+        # streams for channel delays, the nemesis and balancer tie-breaks,
+        # so a run (and its round_trace) is a pure function of
+        # (seed, config)
         self.seed = seed
         root = np.random.SeedSequence(seed)
-        delay_ss, _nemesis_ss, balancer_ss = root.spawn(3)
+        delay_ss, nemesis_ss, balancer_ss = root.spawn(3)
         self.rng = np.random.default_rng(delay_ss)
         self.balancer_rng = np.random.default_rng(balancer_ss)
-        self.net = None
-        self.trace_enabled = bool(trace)
+        self.nemesis_config = nemesis
+        self.net: Optional[Transport] = None
+        if nemesis is not None:
+            if delay_prob > 0.0:
+                # the channel-hold knob is replaced wholesale by transport
+                # routing; accepting both would silently run weaker fault
+                # injection than asked for
+                raise ValueError(
+                    "delay_prob and nemesis are mutually exclusive — "
+                    "use NemesisConfig.delay_prob for delays under the "
+                    "reliable transport")
+            self.net = Transport(
+                self.n, Nemesis(nemesis, np.random.default_rng(nemesis_ss)),
+                retransmit_after=retransmit_after, window=net_window)
+        # durability (DESIGN.md §14): per-shard WAL + snapshots. Crash
+        # plans require it, so a run with crashes and no explicit store
+        # gets an ephemeral tempdir. ``durability`` accepts a directory
+        # path, a Durability, or None
+        self._crash_plans = tuple(nemesis.crashes) if nemesis else ()
+        if self._crash_plans:
+            validate_crash_plans(self._crash_plans, self.n)
+        self._tmp_durability = None
+        if durability is None and self._crash_plans:
+            self._tmp_durability = tempfile.TemporaryDirectory(
+                prefix="dili-durability-")
+            durability = self._tmp_durability.name
+        self.durability: Optional[Durability] = None
+        if durability is not None:
+            self.durability = (durability if isinstance(durability,
+                                                        Durability)
+                               else Durability(durability, cfg))
+            for s in range(self.n):
+                self.durability.ensure_genesis(
+                    s, self.states[s], self.bgs[s], self.backlog[s],
+                    self._lane_image(s))
+        # per-round observable-outcome trace, the replay witness: on by
+        # default for nemesis runs, off on the clean path
+        self.trace_enabled = (nemesis is not None) if trace is None \
+            else bool(trace)
         self.round_trace: List[str] = []
         self.stats = {"max_outbox": 0, "max_hops": 0, "rounds": 0,
                       "fast_hits": 0, "mut_hits": 0, "delegated": 0,
@@ -265,9 +323,15 @@ class Cluster:
     def submit(self, shard: int, kinds: Sequence[int], keys: Sequence[int],
                values: Optional[Sequence[int]] = None) -> List[int]:
         """Enqueue fresh client ops at server ``shard``; returns op ids.
-        Results appear in ``self.results`` once linearized."""
+        Results appear in ``self.results`` once linearized. With
+        durability on, the rows are journaled before the ids are handed
+        out."""
         if not self.membership.is_routable(shard):
-            raise ValueError(f"submit: shard {shard} is not routable")
+            raise ValueError(
+                f"submit: shard {shard} is "
+                f"{self.membership.state_of(shard)} at epoch "
+                f"{self.membership.epoch} — route ops to one of "
+                f"{self.membership.routable}")
         kinds, keys, values = materialize_ops(kinds, keys, values)
         ids = []
         rows = []
@@ -279,6 +343,9 @@ class Cluster:
         if rows:
             self.backlog[shard] = np.concatenate(
                 [self.backlog[shard], np.stack(rows)], axis=0)
+            if self.durability is not None:
+                self.durability.log_submit(shard, self.round_no,
+                                           np.stack(rows))
         return ids
 
     def submit_range(self, shard: int, lo: int, hi: int, limit: int) -> int:
@@ -292,7 +359,11 @@ class Cluster:
                 "submit_range: cfg.range_scan is off — the RANGE pre-pass "
                 "and serial walk are off in shard_round")
         if not self.membership.is_routable(shard):
-            raise ValueError(f"submit_range: shard {shard} is not routable")
+            raise ValueError(
+                f"submit_range: shard {shard} is "
+                f"{self.membership.state_of(shard)} at epoch "
+                f"{self.membership.epoch} — route ops to one of "
+                f"{self.membership.routable}")
         lo, hi, limit = int(lo), int(hi), int(limit)
         if lo < KEY_MIN or hi > KEY_MAX + 1 or limit < 1:
             raise ValueError(
@@ -302,6 +373,8 @@ class Cluster:
         row = RS.make_range_row(shard, lo, hi, limit, slot)
         self.backlog[shard] = np.concatenate(
             [self.backlog[shard], row[None]], axis=0)
+        if self.durability is not None:
+            self.durability.log_submit(shard, self.round_no, row[None])
         self._pending_ops[slot] = (-1, lo)
         self._range_ops.add(slot)
         self._range_parts[slot] = []
@@ -322,43 +395,168 @@ class Cluster:
         self._ids.release(op_id)
         return val
 
+    # ------------------------------------------------- membership (§13)
     def join_shard(self, shard: Optional[int] = None) -> int:
-        raise NotImplementedError(f"join_shard comes with {LATER_SLICE}")
+        """Admit a retired capacity slot as a JOINING member (empty — the
+        balancer drains sublists onto it; the host promotes it to ACTIVE
+        once it owns one). Returns the joined shard id."""
+        s = self.membership.begin_join(shard)
+        self._broadcast_epoch()
+        return s
 
     def retire_shard(self, shard: int) -> None:
-        raise NotImplementedError(f"retire_shard comes with {LATER_SLICE}")
+        """Begin draining ``shard``: the balancer evacuates every sublist
+        it owns, it keeps executing (delegations in flight must land), and
+        the host retires it — resetting its transport lanes — once
+        ``_drain_complete`` proves nothing can still reach it."""
+        self.membership.begin_drain(shard)
+        self._broadcast_epoch()
+
+    def _broadcast_epoch(self) -> None:
+        """Stage a MSG_EPOCH announcement to every capacity slot, from the
+        lowest *active* shard (never a draining one, whose retirement
+        waits on its lanes going idle)."""
+        rows = epoch_broadcast(self.membership)
+        src = int(min(self.membership.active))
+        self._ctrl_out.append((src, np.stack(rows).astype(np.int32)))
+
+    def _drain_complete(self, s: int) -> bool:
+        """True when retiring ``s`` can strand nothing: it owns no
+        sublist, runs no bg op, no peer's in-flight Move targets it, no
+        queued/staged row can still be delivered to it, and every
+        transport lane touching it is idle (incl. nemesis-held frames)."""
+        if owned_entry_count(self.cfg, self.states, s) != 0:
+            return False
+        if B.any_active(self.bgs[s]):
+            return False
+        if moves_targeting(self.bgs, s) != 0:
+            return False
+        if self.backlog[s].shape[0]:
+            return False
+        if self._ctrl_out:
+            return False
+        if self.net is not None and not self.net.shard_idle(s):
+            return False
+        return True
+
+    def _membership_maintenance(self) -> None:
+        """Host-driven lifecycle advance, once per round (a pure function
+        of post-round state): promotes joining shards that own their first
+        sublist; retires draining shards whose drain is complete,
+        resetting their lanes before announcing."""
+        mb = self.membership
+        if not (mb.joining or mb.draining):
+            return
+        changed = False
+        for s in mb.joining:
+            if owned_entry_count(self.cfg, self.states, s) > 0:
+                mb.promote(s)
+                changed = True
+        for s in mb.draining:
+            if self._drain_complete(s):
+                mb.finish_drain(s)
+                if self.net is not None:
+                    self.net.reset_shard(s)
+                changed = True
+        if changed:
+            self._broadcast_epoch()
+
+    # ------------------------------------------------- crash-restart (§14)
+    def _lane_image(self, s: int) -> Dict[str, np.ndarray]:
+        return (self.net.export_shard_lanes(s)
+                if self.net is not None else {})
+
+    def _down(self):
+        return self.net.down if self.net is not None else ()
+
+    def _apply_crash_plans(self) -> None:
+        """Execute due CrashPlans at the top of the round. Restarts run
+        before crashes so a plan pair sharing a round boundary recovers
+        one shard while killing another deterministically."""
+        for c in self._crash_plans:
+            if c.restart_round == self.round_no and c.shard in self._down():
+                self._restart_shard(c.shard)
+        for c in self._crash_plans:
+            if c.crash_round == self.round_no:
+                self._crash_shard(c.shard)
+
+    def _crash_shard(self, s: int) -> None:
+        """kill -9: the shard's state, BgTable, host backlog and its
+        halves of every transport lane vanish. Durable WAL + snapshots
+        (and everything client-side) survive."""
+        self.membership.crash(s)
+        if not self.membership.active:
+            raise RuntimeError(
+                f"crash of shard {s} leaves no active shard — the "
+                f"coordinator for epoch broadcasts must survive")
+        self._broadcast_epoch()
+        self.states[s] = init_shard(self.cfg, s, peers_mask=0,
+                                    device=self.device)
+        self.bgs[s] = B.init_bg_table(self.cfg, self.device)
+        self.backlog[s] = np.zeros((0, M.FIELDS), np.int32)
+        self.net.crash_shard(s)
+
+    def _restart_shard(self, s: int) -> None:
+        """Recovery: snapshot + WAL replay rebuilds the shard on the
+        cluster's device at its last durable round; the lane image re-arms
+        its retransmit rings and receiver cursors. The shard re-enters as
+        JOINING-with-state, and host maintenance promotes it back."""
+        rec = self.durability.recover(s, in_cap=self.in_cap,
+                                      device=self.device)
+        self.states[s] = rec.state
+        self.bgs[s] = rec.bg
+        self.backlog[s] = rec.backlog
+        self.net.restart_shard(s, rec.lanes)
+        self.membership.restart(s)
+        self._broadcast_epoch()
+        # fresh durable base: the replayed suffix is now redundant
+        self.durability.snapshot_now(s, self.round_no - 1, self.states[s],
+                                     self.bgs[s], self.backlog[s],
+                                     self._lane_image(s))
 
     # ------------------------------------------------------------- execution
     def step(self) -> int:
-        """One synchronized round across all shards. Returns #completed."""
+        """One synchronized round across all shards. Returns #completed.
+        The order is the reference's: crash plans, the feed, the shard
+        rounds, harvest, control rows, routing, membership maintenance,
+        the WAL and snapshots, the trace."""
         cfg = self.cfg
         self._views.clear()
+        self._apply_crash_plans()
+        down = self._down()
         outs = []
         for s in range(self.n):
+            if s in down:
+                outs.append(None)
+                continue
             # feed: backlog first (FIFO), bounded by in_cap
             feed = self.backlog[s][:self.in_cap]
             self.backlog[s] = self.backlog[s][self.in_cap:]
             inbox = np.zeros((self.in_cap, M.FIELDS), np.int32)
             inbox[:feed.shape[0]] = feed
             outs.append(shard_round(self.states[s], self.bgs[s], s, inbox,
-                                    np.zeros((0, M.FIELDS), np.int32), cfg,
-                                    timer=self.timer))
+                                    _NO_ROWS, cfg, timer=self.timer))
 
         timer = self.timer or (lambda name: contextlib.nullcontext())
         with timer("host_routing"):
-            ndone = self._harvest(outs)
+            ndone = self._harvest(outs, down)
         self.round_no += 1
         self.stats["rounds"] += 1
         return ndone
 
-    def _harvest(self, outs) -> int:
+    def _harvest(self, outs, down) -> int:
         cfg = self.cfg
         ndone = 0
         self.last_completions = []
         new_msgs: List[Tuple[int, np.ndarray]] = []
         out_counts: List[int] = []
+        comp_by_shard: List[np.ndarray] = []
         ent_rates: Dict[int, int] = {}
         for s, out in enumerate(outs):
+            if out is None:                      # crashed: emitted nothing
+                out_counts.append(0)
+                comp_by_shard.append(np.zeros((0, 4), np.int32))
+                continue
             self.states[s] = out.state
             self.bgs[s] = out.bg
             self.stats["fast_hits"] += int(out.fast_hits)
@@ -394,25 +592,22 @@ class Cluster:
                     self.stats["max_hops"] = max(self.stats["max_hops"],
                                                  int(hops.max()))
                     self.stats["delegated"] += int(hops.size)
-            cs, cv, cr, ck = (_np(out.comp_slot), _np(out.comp_val),
-                              _np(out.comp_src), _np(out.comp_key))
-            done = cs >= 0
-            for slot, val, src, key in zip(cs[done], cv[done], cr[done],
-                                           ck[done]):
-                slot = int(slot)
-                if int(key) != SH_KEY:
+            comp = completions_array(out)
+            comp_by_shard.append(comp)
+            for slot, val, src, key in comp.tolist():
+                if key != SH_KEY:
                     # one RANGE item — accumulate; publication waits for
                     # the terminal count
                     self._range_parts.setdefault(slot, []).append(
-                        (int(key), int(val)))
+                        (key, val))
                     continue
                 if slot in self._range_ops:
                     # terminal scan result: F_A is the total item count
-                    self._range_done[slot] = (int(val), int(src))
+                    self._range_done[slot] = (val, src)
                     continue
-                self.results[slot] = int(val)
-                self.result_src[slot] = int(src)
-                self.last_completions.append((slot, int(val), int(src)))
+                self.results[slot] = val
+                self.result_src[slot] = src
+                self.last_completions.append((slot, val, src))
                 self._pending_ops.pop(slot, None)
                 ndone += 1
         ndone += self._publish_ranges()
@@ -428,8 +623,21 @@ class Cluster:
             nxt_rates[k] = nxt_rates.get(k, 0.0) + alpha * h
         self.op_rate_ewma = nxt_rates
 
+        # host->shard membership announcements join the routed stream
+        # after the shard outboxes, so they are partitioned and
+        # retransmitted like any protocol message
+        if self._ctrl_out:
+            new_msgs.extend(self._ctrl_out)
+            self._ctrl_out = []
+
         # ------------------------------------------------ route (FIFO/pair)
-        if new_msgs:
+        pre_lens = [b.shape[0] for b in self.backlog]
+        if self.net is not None:
+            # reliable transport over the (possibly nemesis-perturbed)
+            # wire; runs on quiet rounds too so retransmit timers, acks
+            # and delayed frames keep moving
+            self.net.route_round(self.backlog, new_msgs, self.round_no)
+        elif new_msgs:
             allm = np.concatenate([ob for _, ob in new_msgs], axis=0)
             for d in range(self.n):
                 mine = allm[allm[:, M.F_DST] == d]
@@ -445,10 +653,34 @@ class Cluster:
                 else:
                     self.backlog[d] = np.concatenate(
                         [self.backlog[d], mine], axis=0)
+        self._membership_maintenance()
+        if self.durability is not None:
+            # journal the round per live shard: the inputs consumed, the
+            # completions produced (replay audit) and the post-routing
+            # lane image, synced before the next round's acks (§14)
+            for s in range(self.n):
+                if s in down:
+                    continue
+                self.durability.log_round(
+                    s, self.round_no,
+                    appends=self.backlog[s][pre_lens[s]:],
+                    client=_NO_ROWS, comp=comp_by_shard[s],
+                    bg_phases=B.slot_phases(self.bgs[s]),
+                    epoch=int(self.states[s].epoch),
+                    lanes=self._lane_image(s))
+                self.durability.maybe_snapshot(
+                    s, self.round_no, self.states[s], self.bgs[s],
+                    self.backlog[s], self._lane_image(s))
         if self.trace_enabled:
+            # membership transitions are part of the replay witness
+            for ep, ev, sh in self.membership.log[self._mb_logged:]:
+                self.round_trace.append(
+                    f"r{self.round_no} mb {ev} s{sh} e{ep}")
+            self._mb_logged = len(self.membership.log)
             self.round_trace.append(trace_entry(
                 self.round_no, self.last_completions, out_counts,
-                extra=sum(b.shape[0] for b in self.backlog)))
+                extra=sum(b.shape[0] for b in self.backlog)
+                + (self.net.in_flight() if self.net is not None else 0)))
         return ndone
 
     def _publish_ranges(self) -> int:
@@ -473,19 +705,26 @@ class Cluster:
             self.step()
 
     def run_until_quiet(self, max_rounds: int = 200) -> None:
-        """Step until no messages are in flight and all bg ops are idle."""
+        """Step until no messages are in flight, all bg ops are idle and
+        no shard is down."""
         for _ in range(max_rounds):
             self.step()
             busy = any(b.shape[0] for b in self.backlog)
             busy = busy or any(B.any_active(bg) for bg in self.bgs)
             busy = busy or bool(self._pending_ops)
+            busy = busy or bool(self._ctrl_out)
+            busy = busy or (self.net is not None and not self.net.idle())
+            # a crashed shard is not quiet: keep stepping toward its
+            # scheduled restart
+            busy = busy or bool(self.membership.crashed)
             if not busy:
                 return
         raise RuntimeError(
             f"cluster did not quiesce: backlog="
             f"{[b.shape[0] for b in self.backlog]} "
             f"bg={[B.slot_phases(bg).tolist() for bg in self.bgs]} "
-            f"pending={len(self._pending_ops)}")
+            f"pending={len(self._pending_ops)} "
+            f"net={self.net.in_flight() if self.net is not None else 0}")
 
     # ----------------------------------------------------------- inspection
     def _view(self, s: int) -> dict:
@@ -510,18 +749,29 @@ class Cluster:
         return registry_entries(self.states[s])
 
     # ---------------------------------------------------------- bg commands
+    # Each returns True if a slot accepted the command, False if it was
+    # dropped; with durability on it is journaled (wal.KIND_COMMAND),
+    # since it edits the BgTable outside the inbox.
     def split(self, s: int, entry_keymax: int, sitem_idx: int) -> bool:
         self.bgs[s], ok = B.queue_split(self.bgs[s], entry_keymax, sitem_idx)
+        self._log_command(s, wal.CMD_SPLIT, (entry_keymax, sitem_idx), ok)
         return bool(ok)
 
     def move(self, s: int, entry_keymax: int, target: int) -> bool:
         self.bgs[s], ok = B.queue_move(self.bgs[s], entry_keymax, target)
+        self._log_command(s, wal.CMD_MOVE, (entry_keymax, target), ok)
         return bool(ok)
 
     def merge(self, s: int, left_keymax: int, right_keymax: int) -> bool:
         self.bgs[s], ok = B.queue_merge(self.bgs[s], left_keymax,
                                         right_keymax)
+        self._log_command(s, wal.CMD_MERGE, (left_keymax, right_keymax), ok)
         return bool(ok)
+
+    def _log_command(self, s: int, cmd: int, args, ok) -> None:
+        if self.durability is not None:
+            self.durability.log_command(s, self.round_no, cmd, args,
+                                        bool(ok))
 
     def replicate(self, s: int, entry_keymax: int, target: int) -> bool:
         raise NotImplementedError(f"replication comes with {LATER_SLICE}")

@@ -13,9 +13,10 @@ C3  Carry-over: a reference run's states, background tables and backlog
     are carried into the port through ``repro_torch.convert`` mid-stream
     (a Split in flight) and both continue on the same feed in lockstep.
 C4  Guards: the package imports neither ``jax`` nor ``repro``; entry points
-    default to CUDA and raise without it; work outside the port so far
-    (read replication, membership changes, the transport's nemesis,
-    durability) raises.
+    default to CUDA and raise without it; read replication, the one part
+    not ported yet, raises (a WAL holding a replication command included);
+    the transport's nemesis, a membership join and a WAL run, equal to
+    the reference.
 """
 import ast
 import os
@@ -30,10 +31,12 @@ import torch
 import repro.api as JA
 import repro.core.balancer as JBAL
 import repro.core.sim as JSIM
+import repro.core.net as JNET
 import repro.core.types as JT
 import repro.data.ycsb as JY
 import repro_torch.api as TA
 import repro_torch.core.balancer as TBAL
+import repro_torch.core.net as TNET
 import repro_torch.core.sim as TSIM
 import repro_torch.core.types as TT
 import repro_torch.data.ycsb as TY
@@ -289,9 +292,70 @@ def test_c4_work_outside_the_slice_raises():
 
     cl = TSIM.Cluster(cfg, device="cpu")
     for call in (lambda: cl.replicate(0, JT.KEY_MAX, 1),
-                 lambda: cl.drop_replica(0, JT.KEY_MAX, 1),
-                 lambda: cl.join_shard(),
-                 lambda: TSIM.Cluster(cfg, device="cpu", nemesis=object()),
-                 lambda: TSIM.Cluster(cfg, device="cpu", durability="x")):
+                 lambda: cl.drop_replica(0, JT.KEY_MAX, 1)):
         with pytest.raises(NotImplementedError):
             call()
+
+    # a WAL holding a read-replication command cannot be replayed yet: the
+    # recovery raises instead of skipping the record
+    import tempfile
+    from repro_torch.core.durability import Durability, wal
+    with tempfile.TemporaryDirectory() as d:
+        dur = Durability(d, cfg)
+        dur.ensure_genesis(0, state, bg, none, {})
+        dur.log_command(0, 0, wal.CMD_REPLICATE, (JT.KEY_MAX, 1), True)
+        with pytest.raises(NotImplementedError, match="item 11"):
+            dur.recover(0, in_cap=64, device="cpu")
+
+
+def _fault_run(pkg, case, tmp):
+    """A two-slot run through the transport under a lossy wire, a join of
+    a retired slot with a Move onto it, or a WAL: what C4 once raised
+    for. Returns the observables both packages must agree on."""
+    p = PKGS[pkg]
+    T = p["types"]
+    cfg = T.DiLiConfig(**dict(KW, num_shards=2))
+    kw = dict(p["extra"], seed=3, trace=True)
+    if case == "nemesis":
+        net = (JNET if pkg == "jax" else TNET).NemesisConfig(
+            drop_prob=0.2, dup_prob=0.2, reorder_prob=0.2)
+        kw["nemesis"] = net
+    elif case == "join_shard":
+        kw["initial_shards"] = 1
+    else:
+        kw["durability"] = f"{tmp}/{pkg}"
+    cl = p["sim"].Cluster(cfg, **kw)
+    keys = list(range(3, 300, 7))
+    cl.submit(0, [T.OP_INSERT] * len(keys), keys)
+    if case != "join_shard":
+        cl.submit(1, [T.OP_FIND, T.OP_REMOVE, T.OP_INSERT], [10, 17, 400])
+    cl.run_until_quiet(400)
+    if case == "join_shard":
+        assert cl.join_shard() == 1
+        cl.run_until_quiet(400)
+        sub = [e for e in cl.sublists(0) if e["owner"] == 0][0]
+        assert cl.split(0, sub["keymax"], cl.middle_item(0, sub["head_idx"]))
+        cl.run_until_quiet(400)
+        sub = [e for e in cl.sublists(0) if e["owner"] == 0][0]
+        assert cl.move(0, sub["keymax"], 1)
+        cl.run_until_quiet(800)
+        assert cl.membership.active == (0, 1)
+    out = dict(trace=cl.round_trace, keys=cl.all_keys(),
+               results=dict(cl.results), log=list(cl.membership.log),
+               states=[digest(st, b) for st, b in zip(cl.states, cl.bgs)])
+    if case == "durability":
+        out["wal"] = [[(k, r[k].tolist()) for k in sorted(r)]
+                      for s in range(2)
+                      for r in cl.durability.wal(s).records()]
+    return out
+
+
+@pytest.mark.parametrize("case", ["nemesis", "join_shard", "durability"])
+def test_c4_fault_tolerance_paths_match_the_reference(case, tmp_path):
+    """The calls C4 used to hold as raising now run, equal to the
+    reference: round traces, results, keys, membership logs, per-shard
+    state digests and (with a WAL) every journaled record."""
+    ref = _fault_run("jax", case, tmp_path)
+    got = _fault_run("torch", case, tmp_path)
+    assert got == ref
+    assert got["trace"] and got["results"]
