@@ -74,6 +74,21 @@ which makes the script exit non-zero when it fails:
                quiescence; rounds, ms per round and ops/s beside fig3b4's
                clean mix, transport counters, WAL bytes and fsync ms per
                round, recovery ms, the breakdown and launches per server;
+  6e. zipf   — ``benchmarks/run.py::zipf`` at theta 0.99 (``ZIPF``: 4
+               servers, the block probe, the balancer's hot-entry stage),
+               read replication on and off, through ``DiLiClient``:
+               rounds, the measured mix's ``rep_hits`` and the digest of
+               every op's result equal the reference's
+               (``ZIPF_EXPECTED``), the key set the sequential oracle's,
+               replicas serve FINDs, ``hybrid_search`` launches on every
+               server; ops/s on and off, their ratio, ms per round and
+               the breakdown with the ``replica_serve`` and
+               ``replica_step`` spans;
+  6f. replica_nemesis — ``tests/test_replica.py``'s nemesis differential
+               with replication forced on (``REPLICA_NEMESIS``): the
+               windowed referee for replica-served FINDs, the exact
+               oracle for the rest, the round trace's digest
+               (``REPLICA_NEMESIS_DIGEST``) and replica hits;
   7. serving — Qwen2-0.5B at full width, f32, random weights from a fixed
                seed, through ``ServingEngine`` over a two-shard DiLi page
                index, as ``benchmarks/run.py::serving`` drives it (``SERVE``):
@@ -192,6 +207,45 @@ NEMESIS4 = dict(faults=dict(drop_prob=0.15, dup_prob=0.15, reorder_prob=0.15,
                             delay_prob=0.075, delay_rounds=3),
                 mix_ops=1000, crash_shard=1, crash_after=20, down=30,
                 mix_start=287)
+
+# benchmarks/run.py::zipf at theta 0.99: 4 servers (pool 2**15, 256
+# entries, batch 32, block probe), replication on or off, the Balancer
+# with hot_rate 6, cold_rate 1, hot_share 0.45, replica_fanout 3; load
+# n_load keys over key_space (seed 12), settle, a warm mix of n_ops at 90%
+# reads (seed 13), then the measured read-only mix of n_ops (seed 14),
+# all through DiLiClient in batches of `batch` per server per round
+ZIPF = dict(theta=0.99, n_load=1000, n_ops=4000, key_space=4000, batch=32)
+
+# what the JAX reference gives for ZIPF, replication on and off: rounds of
+# load + settle, of the warm mix and of the measured mix, FINDs served by
+# replicas in the measured mix, and the sha256 of every op's result in
+# submission order (int32). tests/test_torch_zipf{,_off}.py recompute
+# them from the reference (benchmarks/run.py's driver) and from the port
+# on the CPU
+ZIPF_EXPECTED = {
+    "on": dict(setup_rounds=100, warm_rounds=82, rounds=33, rep_hits=2333,
+               results="cca3f4e6a0f48138c34f2c106df58c0c"
+                       "40127d504b9f887a9e80dfcffd24e248"),
+    "off": dict(setup_rounds=100, warm_rounds=107, rounds=105, rep_hits=0,
+                results="dadedf22d095d641dcf68c2bb623bbb015cc91790f"
+                        "302cf939a085f371a54803"),
+}
+
+# tests/test_replica.py::test_differential_nemesis_with_replication: seed
+# 47, 400 ops, default_nemesis(0.10), replication forced on (REP_OVERRIDES)
+# and a balancer that replicates whatever the workload touches (REP_BAL);
+# REPLICA_NEMESIS_DIGEST is its round-trace digest as the reference gives
+# it (tests/test_torch_replica_nemesis.py recomputes it)
+REPLICA_NEMESIS = dict(seed=47, n_ops=400, faults=dict(
+    drop_prob=0.1, dup_prob=0.1, reorder_prob=0.1, delay_prob=0.05,
+    delay_rounds=3))
+REP_OVERRIDES = dict(replication=True, replica_sessions=4, replica_slots=8,
+                     replica_batch=8, replica_refresh_rounds=4,
+                     replica_staleness_rounds=32)
+REP_BAL = dict(hot_rate=1.0, hot_share=0.0, cold_rate=0.0,
+               replica_fanout=2)
+REPLICA_NEMESIS_DIGEST = \
+    "724dab1e035e3b63d1dad972aae3ae4df3f34a53bc34411521f2d9e574e936a7"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the CUDA-core f32
 # rate (also the nearest table entry for int32 compares) and the bf16
@@ -503,16 +557,26 @@ def nemesis_differential(seed: int, nemesis, *, n_ops: int = 600,
                          key_space: int = 500, num_shards: int = 4,
                          ops_per_round: int = 8, split_threshold: int = 24,
                          drain_rounds: int = 12000, cfg_overrides=None,
-                         scan_every: int = 0, device="cuda",
-                         durability=None, timer=None) -> dict:
+                         balancer_kwargs=None, scan_every: int = 0,
+                         device="cuda", durability=None, timer=None) -> dict:
     """``tests/nemesis_harness.py::run_differential`` on the port's local
     backend: a load of keys, then rounds of mixed FIND/INSERT/REMOVE
     through ``DiLiClient`` (per-key FIFO admission makes the sequential
-    oracle exact) with a seeded ``Balancer`` racing Splits, Moves and
-    Merges against them, under ``nemesis``; RANGE scans every
-    ``scan_every`` batches. Same draws, same order, so its round trace
-    equals the reference's. Returns the harness's result fields and the
-    backend."""
+    oracle exact) with a seeded ``Balancer`` (``balancer_kwargs`` reach
+    it) racing Splits, Moves, Merges and, with ``cfg.replication``,
+    replicate/drop commands against them, under ``nemesis``; RANGE scans
+    every ``scan_every`` batches. Same draws, same order, so its round
+    trace equals the reference's. Returns the harness's result fields and
+    the backend.
+
+    The referee is the harness's: the sequential oracle judges every
+    mutation, every FIND a primary served and the final key set exactly.
+    A FIND the client sent to a read replica (``fut.via_replica``) is
+    served from an image of bounded staleness, so it is judged by the
+    *windowed* referee: its result must be a membership state the key
+    held within the staleness window (in ops) before its submission.
+    ``replica_window`` in the result is that window, 0 without
+    replication."""
     import numpy as np
     from repro_torch.api import DiLiClient, LocalBackend
     from repro_torch.core.balancer import Balancer
@@ -528,15 +592,31 @@ def nemesis_differential(seed: int, nemesis, *, n_ops: int = 600,
     backend = LocalBackend(cfg, seed=seed, nemesis=nemesis,
                            durability=durability, device=device, timer=timer)
     bal = Balancer(backend, split_threshold=split_threshold,
-                   merge_threshold=6, rng=backend.balancer_rng)
+                   merge_threshold=6, rng=backend.balancer_rng,
+                   **(balancer_kwargs or {}))
     client = DiLiClient(backend, balance=bal, balance_every=3)
     oracle = OracleList()
     rng = np.random.default_rng(seed + 1)
 
+    # per-key membership history as (global op index, state after): the
+    # windowed referee's record
+    hist = {}
+    opno = 0
+
+    def apply_and_record(kinds_, keys_):
+        nonlocal opno
+        out = []
+        for kk, ky in zip(kinds_, keys_):
+            out.append(oracle.apply(kk, ky))
+            if kk != OP_FIND:
+                hist.setdefault(ky, []).append((opno, ky in oracle))
+            opno += 1
+        return out
+
     n_load = min(max(key_space // 4, 20), 150)
     base = rng.permutation(np.arange(1, key_space))[:n_load].tolist()
-    futs, exps = [client.insert_batch(base)], [[True] * len(base)]
-    oracle.apply_batch([OP_INSERT] * len(base), base)
+    futs, exps, starts = [client.insert_batch(base)], [[True] * len(base)], [0]
+    apply_and_record([OP_INSERT] * len(base), base)
     client.drain(drain_rounds, run_balance=True)
 
     srng = np.random.default_rng(seed + 2)
@@ -547,7 +627,8 @@ def nemesis_differential(seed: int, nemesis, *, n_ops: int = 600,
         kinds = rng.choice([OP_FIND, OP_INSERT, OP_REMOVE], k).tolist()
         keys = rng.integers(1, key_space, k).tolist()
         futs.append(client.submit(kinds, keys))
-        exps.append(oracle.apply_batch(kinds, keys))
+        starts.append(opno)
+        exps.append(apply_and_record(kinds, keys))
         if scan_every and batch_no % scan_every == 0:
             lo = int(srng.integers(0, key_space))
             hi = lo + int(srng.integers(1, key_space // 2))
@@ -564,13 +645,40 @@ def nemesis_differential(seed: int, nemesis, *, n_ops: int = 600,
                        for lo, hi, limit, want, fut in scans
                        if (got := [kv[0] for kv in fut.items(wait=False)])
                        != want]
-    mismatches = [(fut.kind, fut.key, e, got)
-                  for batch, exp in zip(futs, exps)
-                  for fut, got, e in zip(batch, batch.results(), exp)
-                  if bool(got) != e]
+
+    # the staleness bound is in rounds and at most one batch is submitted
+    # a round, so ops_per_round per round bounds the op-index drift across
+    # the window (plus cadence and streaming slack)
+    window = 0
+    if cfg.replication:
+        window = (cfg.replica_staleness_rounds + cfg.replica_refresh_rounds
+                  + 16) * ops_per_round
+
+    def replica_ok(key, t, got):
+        lo, base_state, seen = t - window, False, set()
+        for when, st in hist.get(key, []):
+            if when <= lo:
+                base_state = st
+            elif when <= t:
+                seen.add(bool(st))
+        seen.add(bool(base_state))
+        return bool(got) in seen
+
+    mismatches, windowed = [], 0
+    for start, batch, exp in zip(starts, futs, exps):
+        for i, (fut, got, e) in enumerate(zip(batch, batch.results(), exp)):
+            if bool(got) == e:
+                continue
+            if (window and fut.kind == OP_FIND
+                    and getattr(fut, "via_replica", False)
+                    and replica_ok(fut.key, start + i, got)):
+                windowed += 1
+                continue
+            mismatches.append((fut.kind, fut.key, e, got))
     cl = backend.cluster
     final = backend.all_keys()
     return dict(mismatches=mismatches, scan_mismatches=scan_mismatches,
+                replica_window=window, replica_windowed=windowed,
                 n_scans=len(scans), final_keys=final,
                 oracle_keys=sorted(oracle.snapshot()),
                 keys_match=final == sorted(oracle.snapshot()),
@@ -582,7 +690,10 @@ def nemesis_differential(seed: int, nemesis, *, n_ops: int = 600,
 
 def check_differential(what: str, res: dict) -> None:
     """``tests/nemesis_harness.py::check``: every result and scan, the
-    final key set and quiescence."""
+    final key set and quiescence. ``res["mismatches"]`` already holds the
+    windowed referee's verdict on replica-served FINDs (the staleness
+    window the configuration states, ``res["replica_window"]`` ops) and
+    the exact oracle's on everything else."""
     check(not res["mismatches"],
           f"{what}: results differ from the oracle {res['mismatches'][:5]}")
     check(not res["scan_mismatches"],
@@ -591,6 +702,224 @@ def check_differential(what: str, res: dict) -> None:
     check(res["keys_match"], f"{what}: the final key set differs from the "
                              f"oracle's")
     check(res["quiescent"], f"{what}: the backend did not quiesce")
+
+
+def zipf_cfg(replication: bool):
+    """``benchmarks/run.py::zipf``'s ``cfg_for``."""
+    from repro_torch.core.types import DiLiConfig
+    return DiLiConfig(num_shards=4, pool_capacity=1 << 15, max_sublists=256,
+                      max_ctrs=256, max_scan=1 << 15, batch_size=32,
+                      mailbox_cap=512, split_threshold=125, move_batch=32,
+                      block_probe=True, replication=replication,
+                      replica_sessions=4, replica_slots=8, replica_batch=16,
+                      replica_refresh_rounds=4, replica_staleness_rounds=64)
+
+
+def drive_client(client, kinds, keys, batch, futs=None,
+                 sync=lambda: None) -> float:
+    """``benchmarks/run.py::_drive_client``: feed ``batch`` ops per server
+    per round through the client, pump, then drain; returns the wall
+    seconds (``sync`` is called before each clock read). Each submitted
+    batch's futures are appended to ``futs``."""
+    n = len(kinds)
+    per_round = batch * client.backend.n
+    sync()
+    t0 = time.perf_counter()
+    i = 0
+    while i < n:
+        j = min(i + per_round, n)
+        f = client.submit(kinds[i:j].tolist(), keys[i:j].tolist())
+        if futs is not None:
+            futs.append(f)
+        i = j
+        client.pump()
+    client.drain(4000)
+    sync()
+    return time.perf_counter() - t0
+
+
+def results_digest(futs) -> str:
+    """sha256 of every future's raw result code, in submission order, as
+    int32."""
+    import hashlib
+    import numpy as np
+    vals = [fut.raw() for f in futs for fut in f]
+    return hashlib.sha256(np.asarray(vals, np.int32).tobytes()).hexdigest()
+
+
+def oracle_check(futs):
+    """The sequential oracle over every future, in submission order (per-key
+    FIFO admission makes it exact through ``DiLiClient``): returns the ops
+    whose result differs from it, FINDs a replica served (bounded
+    staleness) left out, and the oracle's final keys."""
+    from repro_torch.core.oracle import OracleList
+    from repro_torch.core.types import OP_FIND
+    oracle = OracleList()
+    mismatches = []
+    for f in futs:
+        for fut, got in zip(f, f.results()):
+            want = oracle.apply(fut.kind, fut.key)
+            if bool(got) != want and not (
+                    fut.kind == OP_FIND and getattr(fut, "via_replica",
+                                                    False)):
+                mismatches.append((fut.kind, fut.key, want, got))
+    return mismatches, sorted(oracle.snapshot())
+
+
+def zipf_run(replication: bool, *, theta: float = ZIPF["theta"],
+             device="cuda", timer=None, sync=lambda: None) -> dict:
+    """``benchmarks/run.py::zipf``'s run at ``theta``: load + settle, the
+    warm mix, then the measured read-only mix (timed), on the port's local
+    backend. Returns the rounds of each part, the measured mix's
+    ``rep_hits``, ops/s and seconds, the results' digest, the round of the
+    first accepted ``replicate`` and of the first replica-served FIND, the
+    backend, and the sequential oracle's view (per-key FIFO admission
+    makes it exact for the key set): ``keys_match``, and in
+    ``mismatches`` the ops whose result differs from it, FINDs a replica
+    served (bounded staleness) left out. The reference's own run has two
+    such FINDs (ROADMAP Queue 3 item 5), so they are logged, and held by
+    the results' digest."""
+    from repro_torch.api import DiLiClient, LocalBackend
+    from repro_torch.core.balancer import Balancer
+    from repro_torch.data.ycsb import load_phase, mixed_phase
+
+    z = ZIPF
+    load = load_phase(z["n_load"], z["key_space"], seed=12)
+    warm = mixed_phase(z["n_ops"], z["key_space"], 0.9, seed=13,
+                       theta=theta)
+    meas = mixed_phase(z["n_ops"], z["key_space"], 1.0, seed=14,
+                       theta=theta)
+    backend = LocalBackend(zipf_cfg(replication), device=device,
+                           timer=timer)
+    bal = Balancer(backend, hot_rate=6.0, cold_rate=1.0, hot_share=0.45,
+                   replica_fanout=3)
+    client = DiLiClient(backend, balance=bal, max_inflight=1024)
+    st = backend.stats
+    first = {}
+    step, replicate = backend.step, backend.replicate
+
+    def stepped():
+        out = step()
+        if st["rep_hits"] and "serve" not in first:
+            first["serve"] = st["rounds"]
+        return out
+
+    def replicated(*a):
+        ok = replicate(*a)
+        if ok and "replicate" not in first:
+            first["replicate"] = st["rounds"]
+        return ok
+
+    backend.step, backend.replicate = stepped, replicated
+    futs = []
+    drive_client(client, *load, z["batch"], futs)
+    client.settle(max_rounds=8000)
+    r_set = st["rounds"]
+    drive_client(client, *warm, z["batch"], futs)
+    r_warm, h0 = st["rounds"], st["rep_hits"]
+    if timer is not None:
+        timer.reset()
+    dt = drive_client(client, *meas, z["batch"], futs, sync=sync)
+
+    mismatches, oracle_keys = oracle_check(futs)
+    final = backend.all_keys()
+    return dict(setup_rounds=r_set, warm_rounds=r_warm - r_set,
+                rounds=st["rounds"] - r_warm, rep_hits=st["rep_hits"] - h0,
+                results=results_digest(futs), seconds=dt,
+                ops_per_s=len(meas[0]) / dt, mismatches=mismatches,
+                keys_match=final == oracle_keys,
+                n_keys=len(final), first_replicate=first.get("replicate"),
+                first_serve=first.get("serve"), backend=backend)
+
+
+def phase_zipf() -> dict:
+    """``benchmarks/run.py::zipf`` at theta 0.99 (``ZIPF``), replication on
+    and off, each under the per-phase timer: rounds, the measured mix's
+    ``rep_hits`` and the results' digest equal ``ZIPF_EXPECTED``, the key
+    set equals the sequential oracle's, replicas serve FINDs with
+    replication on, and ``hybrid_search`` launches on every server."""
+    import torch
+    from repro_torch.kernels import ops as K
+    from repro_torch.timing import PhaseTimer
+
+    runs = {}
+    for label, on in (("on", True), ("off", False)):
+        timer = PhaseTimer("cuda")
+        K.hybrid_search.launches = 0
+        with ShardLaunches() as per_server:
+            t0 = time.perf_counter()
+            r = zipf_run(on, device="cuda", timer=timer,
+                         sync=torch.cuda.synchronize)
+            torch.cuda.synchronize()
+            r["total_s"] = time.perf_counter() - t0
+        r.update(launches=K.hybrid_search.launches,
+                 per_server=dict(per_server),
+                 breakdown=breakdown(timer, r["rounds"]),
+                 ms_per_round=1e3 * r["seconds"] / r["rounds"])
+        r.pop("backend")
+        got = {k: r[k] for k in ZIPF_EXPECTED[label]}
+        check(got == ZIPF_EXPECTED[label],
+              f"zipf {label}: {got} != the reference's "
+              f"{ZIPF_EXPECTED[label]}")
+        check(r["keys_match"], f"zipf {label}: the final key set differs "
+                               f"from the oracle's")
+        _launch_check(f"zipf {label}", per_server, range(4))
+        log(f"[zipf] replication {label}, theta {ZIPF['theta']}: measured "
+            f"read-only mix {r['ops_per_s']:.1f} ops/s ({r['rounds']} "
+            f"rounds, {r['seconds']:.3f} s, {r['ms_per_round']:.3f} "
+            f"ms/round), rep_hits {r['rep_hits']}; load + settle "
+            f"{r['setup_rounds']} and warm {r['warm_rounds']} rounds, "
+            f"{r['total_s']:.1f} s in all; counts and results digest equal "
+            f"the reference's; first replicate at round "
+            f"{r['first_replicate']}, first replica serve at "
+            f"{r['first_serve']}; {r['n_keys']} keys = oracle; results "
+            f"off the strict oracle (the reference's too) "
+            f"{r['mismatches']}; hybrid_search launches {r['launches']}, "
+            f"per server {dict(sorted(per_server.items()))}")
+        log(f"[zipf] replication {label}: per-round ms over the measured "
+            f"mix {json.dumps(r['breakdown'])}")
+        runs[label] = r
+    check(runs["on"]["rep_hits"] > 0, "zipf: no FIND was served by a "
+                                      "replica with replication on")
+    ratio = runs["on"]["ops_per_s"] / runs["off"]["ops_per_s"]
+    log(f"[zipf] on/off: {ratio:.3f}x ops/s "
+        f"({runs['on']['ops_per_s']:.1f} / {runs['off']['ops_per_s']:.1f}), "
+        f"rounds {runs['on']['rounds']} / {runs['off']['rounds']}")
+    return dict(runs=runs, ratio=ratio)
+
+
+def phase_replica_nemesis() -> dict:
+    """``tests/test_replica.py::test_differential_nemesis_with_replication``
+    (``REPLICA_NEMESIS``): 4 servers, replication forced on, the balancer
+    replicating what the workload touches, under the lossy wire. The
+    windowed referee holds replica-served FINDs, the exact oracle the
+    rest and the key set; the round trace digests to
+    ``REPLICA_NEMESIS_DIGEST`` and replicas serve FINDs."""
+    import torch
+    from repro_torch.core.net import NemesisConfig, trace_digest
+
+    e = REPLICA_NEMESIS
+    t0 = time.perf_counter()
+    res = nemesis_differential(
+        e["seed"], NemesisConfig(**e["faults"]), n_ops=e["n_ops"],
+        cfg_overrides=REP_OVERRIDES, balancer_kwargs=REP_BAL,
+        device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_differential("replica_nemesis", res)
+    digest = trace_digest(res["trace"])
+    check(digest == REPLICA_NEMESIS_DIGEST,
+          f"replica_nemesis: round-trace digest {digest} != the "
+          f"reference's {REPLICA_NEMESIS_DIGEST}")
+    hits = res["backend"].stats["rep_hits"]
+    check(hits > 0, "replica_nemesis: no FIND was served by a replica")
+    log(f"[replica_nemesis] seed {e['seed']}, {e['n_ops']} ops on 4 "
+        f"servers: {res['rounds']} rounds in {dt:.2f} s "
+        f"({1e3 * dt / res['rounds']:.3f} ms/round); trace digest equals "
+        f"the reference's; rep_hits {hits}, "
+        f"{res['replica_windowed']} replica FINDs admitted by the "
+        f"{res['replica_window']}-op window; transport {res['net_stats']}")
+    return dict(rounds=res["rounds"], seconds=dt, rep_hits=hits)
 
 
 # tests/membership_harness.py::SCALE_3_5_2: (round due, op, shard); an
@@ -2102,6 +2431,11 @@ def main() -> None:
     nem4 = phase_nemesis4(f3b)
     log(f"[fault] the four fault-tolerance phases in "
         f"{time.perf_counter() - t_ft:.1f} s")
+    t_rep = time.perf_counter()
+    zipf = phase_zipf()
+    rnem = phase_replica_nemesis()
+    log(f"[replication] the two replication phases in "
+        f"{time.perf_counter() - t_rep:.1f} s")
     serving = phase_serving()
     scale = phase_scale(SCALE_KEYS, SCALE_TIMED_ROUNDS)
     scale4 = phase_scale4(SCALE4_KEYS)
@@ -2130,6 +2464,9 @@ def main() -> None:
         launches_crash_per_server=crash["per_server"],
         launches_nemesis4=nem4["launches"],
         launches_nemesis4_per_server=nem4["per_server"],
+        launches_zipf=zipf["runs"]["on"]["launches"],
+        launches_zipf_per_server=zipf["runs"]["on"]["per_server"],
+        launches_zipf_off=zipf["runs"]["off"]["launches"],
         walk_steps_fig3a=f3["plain"]["walk_steps"],
         walk_steps_scale=scale["walk_steps"]), dict(
         name="paged_attention", route="cuda",
@@ -2158,6 +2495,12 @@ def main() -> None:
         f"{mship['rounds']}, nemesis4 {nem4['rounds']} (mix "
         f"{nem4['ms_per_round']:.3f} ms/round, recovery "
         f"{nem4['recovery_ms']:.1f} ms)")
+    log(f"[replication] zipf on/off {zipf['ratio']:.3f}x, "
+        f"{zipf['runs']['on']['ms_per_round']:.3f} / "
+        f"{zipf['runs']['off']['ms_per_round']:.3f} ms/round, replica_step "
+        f"{zipf['runs']['on']['breakdown'].get('replica_step', 0.0):.3f} "
+        f"ms/round; replica_nemesis {rnem['rounds']} rounds, rep_hits "
+        f"{rnem['rep_hits']}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi[0], flush=True)

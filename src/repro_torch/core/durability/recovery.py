@@ -14,8 +14,9 @@ ring), and everything acked was delivered at the peer.
 Every replayed round's completions (and post-round bg phases / epoch)
 are audited against the journaled ones; a mismatch raises
 ``RecoveryError`` rather than resurrecting a shard with different
-history. Read-replication commands in the log raise
-``NotImplementedError``: replication is not ported yet.
+history. The journaled host commands are re-queued where the live run
+queued them: split/move/merge into the BgTable, replicate/drop_replica
+into the shard's replication sessions (DESIGN.md §15).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from .. import bg as B
 from .. import messages as M
+from .. import replica as R
 from ..shard import shard_round
 from ..types import DiLiConfig
 from .snapshot import ShardSnapshots
@@ -100,14 +102,15 @@ def recover_shard(cfg: DiLiConfig, shard: int, wal: WriteAheadLog,
             args = [int(a) for a in np.asarray(rec["args"]).ravel()]
             cmd = int(rec["cmd"])
             if cmd in (CMD_REPLICATE, CMD_DROP_REPLICA):
-                raise NotImplementedError(
-                    f"shard {shard} round {rnd}: the WAL holds a "
-                    f"read-replication command (cmd={cmd}); replication "
-                    f"comes with a later slice of the port (ROADMAP "
-                    f"Queue 1 item 11)")
-            queue = {CMD_SPLIT: B.queue_split, CMD_MOVE: B.queue_move,
-                     CMD_MERGE: B.queue_merge}[cmd]
-            bg, ok = queue(bg, *args)
+                # replication commands edit ShardState.rep, not the
+                # BgTable: same journal, other substrate
+                fn = (R.queue_replicate if cmd == CMD_REPLICATE
+                      else R.queue_drop_replica)
+                state, ok = fn(state, cfg, *args)
+            else:
+                queue = {CMD_SPLIT: B.queue_split, CMD_MOVE: B.queue_move,
+                         CMD_MERGE: B.queue_merge}[cmd]
+                bg, ok = queue(bg, *args)
             if bool(ok) != bool(int(rec["ok"])):
                 raise RecoveryError(
                     f"shard {shard} round {rnd}: replayed command "

@@ -25,6 +25,9 @@ _COLS = {
     "r_subhead": ("registry", "subhead"),
     "r_subtail": ("registry", "subtail"), "r_ctr": ("registry", "ctr"),
     "r_offset": ("registry", "offset"), "blk_valid": ("blk", "valid"),
+    "rs_keymax": ("rslots", "keymax"), "rs_keymin": ("rslots", "keymin"),
+    "rs_src": ("rslots", "src"), "rs_version": ("rslots", "version"),
+    "rs_ttl": ("rslots", "ttl"), "rs_keys": ("rslots", "keys"),
 }
 _SCALARS = {
     "alloc_top": ("alloc_top",), "free_top": ("free_top",),

@@ -15,8 +15,10 @@ the RANGE pre-pass (``range_scan.range_prepass``) serves scan cursors from
 them before anything mutates; the rest walk in the serial pass
 (``range_scan.h_range``). A round with ``MSG_MOVE_ITEMS`` rows replays
 their eligible runs in the batched splice (``bg.replay_prepass``, on the
-device) before the serial pass. ``replication`` is not ported yet and
-raises, and so do its message kinds.
+device) before the serial pass. With ``cfg.replication`` (DESIGN.md §15)
+the replica read pre-pass (``replica.replica_serve``, on the device)
+answers local FINDs from serving replica slots, and the publication step
+(``replica.replica_step``, on the device) runs after the background step.
 """
 from __future__ import annotations
 
@@ -34,14 +36,9 @@ from . import ops as O
 from . import range_scan as RS
 from . import refs
 from . import registry as REG
+from . import replica as R
 from .host import HostShard
 from .types import DiLiConfig, RES_PENDING, SH_KEY, ShardState, clone_state
-
-LATER = {
-    M.MSG_REPLICA_DELTA: "replication",
-    M.MSG_REPLICA_INSTALL: "replication", M.MSG_REPLICA_DROP: "replication",
-}
-
 
 class RoundOut(NamedTuple):
     """A round's result. ``state``/``bg`` live on the shard's device; the
@@ -129,18 +126,19 @@ _HANDLERS = {
     M.MSG_REG_MERGED: _wrap_bg(B.h_reg_merged),
     M.MSG_NET_ACK: _noop,   # transport-level; consumed before the round
     M.MSG_EPOCH: _handle_epoch,
+    M.MSG_REPLICA_DELTA: _wrap_bg(R.h_replica_delta),
+    M.MSG_REPLICA_INSTALL: _wrap_bg(R.h_replica_install),
+    M.MSG_REPLICA_DROP: _wrap_bg(R.h_replica_drop),
     M.MSG_RANGE: RS.h_range,
     M.MSG_RANGE_ITEM: RS.h_range_item,
 }
 
 
+assert sorted(_HANDLERS) == list(range(M.N_KINDS)), sorted(_HANDLERS)
+
+
 def _dispatch(kind: int):
-    fn = _HANDLERS.get(min(max(kind, 0), M.N_KINDS - 1))
-    if fn is None:
-        raise NotImplementedError(
-            f"message kind {kind} reached shard_round: its handler comes "
-            f"with the {LATER.get(kind, 'next')} slice of the port")
-    return fn
+    return _HANDLERS[min(max(kind, 0), M.N_KINDS - 1)]
 
 
 def _host_rows(x) -> np.ndarray:
@@ -154,9 +152,6 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
     """``inbox``/``client``: [*, FIELDS] int32 rows (numpy or tensors),
     MSG_NONE-padded. ``state`` and ``bg`` are not modified. ``timer``, if
     given, is a ``timing.PhaseTimer`` that receives the phase breakdown."""
-    if cfg.replication:
-        raise NotImplementedError(
-            "replication comes with a later slice of the port")
     t = timer if timer is not None else (lambda name: contextlib.nullcontext())
     me = int(me)
     rows_np = np.concatenate([_host_rows(inbox), _host_rows(client)])
@@ -166,8 +161,9 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
     rows = torch.from_numpy(rows_np).to(dev)
 
     # rebuild dirty packed blocks against round-start state, before any
-    # mutation (DESIGN.md §12); the RANGE pre-pass serves from them too
-    if cfg.block_probe or cfg.range_scan:
+    # mutation (DESIGN.md §12); the RANGE pre-pass serves from them, and
+    # replica_step publishes their rows as session images (§15)
+    if cfg.block_probe or cfg.replication or cfg.range_scan:
         with t("refresh_blocks"):
             state = BL.refresh_blocks(state, me, cfg)
 
@@ -195,34 +191,52 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
                                rows_np=rows_np)
     state, handled, outbox, count = mrp
 
-    # per-entry op attribution (pre-reorder), on the device
+    # replica read pre-pass (DESIGN.md §15): fresh local FINDs whose key
+    # lands in a serving replica slot are answered from its image and skip
+    # the serial pass. The Move replay's and the RANGE pre-pass's rows are
+    # never MSG_OP rows, so only the client pre-pass's need excluding on
+    # the device; the host mask below excludes all three, as the
+    # reference does.
+    if cfg.replication:
+        with t("replica_serve"):
+            rep_elig, rep_res = R.replica_serve(state, rows, me, cfg)
+            rep_elig = rep_elig & ~pre.find_elig & ~pre.mut_elig
+    else:
+        rep_elig = torch.zeros((n_rows,), dtype=torch.bool, device=dev)
+        rep_res = torch.zeros((n_rows,), dtype=torch.int32, device=dev)
+
+    # per-entry op attribution (pre-reorder), on the device: an MSG_OP row
+    # counts at the shard that answers it, an owned entry or a replica
     m_ent = state.registry.keymin.shape[0]
     ent = REG.get_by_key(state.registry, rows[:, M.F_KEY])
     entc = ent.clamp(0, m_ent - 1)
     owned = (ent >= 0) & (refs.ref_sid(state.registry.subhead[entc]) == me)
-    count_here = (rows[:, M.F_KIND] == M.MSG_OP) & owned
+    count_here = (rows[:, M.F_KIND] == M.MSG_OP) & (owned | rep_elig)
     ent_hits = torch.zeros((m_ent,), dtype=torch.int32, device=dev)
     ent_hits.index_add_(0, entc.long(), count_here.to(torch.int32))
 
     # one transfer brings the pre-pass verdicts to the host
     pv = torch.cat([pre.find_elig.to(torch.int32),
-                    pre.mut_elig.to(torch.int32), pre.res,
+                    pre.mut_elig.to(torch.int32),
+                    torch.where(rep_elig, rep_res, pre.res),
+                    rep_elig.to(torch.int32),
                     pre.blk_hits.reshape(1)]).cpu().numpy()
     find_elig = pv[:n_rows].astype(bool)
     mut_elig = pv[n_rows:2 * n_rows].astype(bool)
     res_all = pv[2 * n_rows:3 * n_rows]
+    rep_elig = pv[3 * n_rows:4 * n_rows].astype(bool) & ~handled
     blk_hits = int(pv[-1])
 
     kind0 = rows_np[:, M.F_KIND]
     skip = (kind0 == M.MSG_NONE) | find_elig | mut_elig | handled \
-        | range_handled
+        | rep_elig | range_handled
     serial_mut = bool(np.any(~skip & ~np.isin(kind0, _PURE_KINDS)))
 
     # stable-partition the rows the serial pass must execute to the front
     order = np.argsort(skip.astype(np.int64) * n_rows + np.arange(n_rows),
                        kind="stable")
     rows_o = rows_np[order]
-    pre_done = (find_elig | mut_elig)[order]
+    pre_done = (find_elig | mut_elig | rep_elig)[order]
     n_live = int((~skip).sum())
 
     # completions start pre-filled with the pre-pass answers (those rows
@@ -250,6 +264,15 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
         state = h.commit()
         bg = hb.table()
 
+    # publication step (DESIGN.md §15): after the serial pass and the bg
+    # step, so a fresh image already holds this round's mutations
+    if cfg.replication:
+        with t("replica_step"):
+            traffic = bool(np.any(kind0 != M.MSG_NONE))
+            mutated = serial_mut or bool(mut_elig.any()) or bg_busy
+            state, outbox, count = R.replica_step(
+                state, me, mutated, traffic, outbox, count, cfg)
+
     # blanket invalidation: serial mutating rows or any bg slot active
     # around bg_step (DESIGN.md §12)
     if serial_mut or bg_busy or handled.any():
@@ -269,7 +292,7 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
         bg_active=torch.tensor(bg_active, dtype=i32),
         move_hits=torch.tensor(int(handled.sum()), dtype=i32),
         blk_hits=torch.tensor(blk_hits, dtype=i32),
-        rep_hits=torch.tensor(0, dtype=i32),
+        rep_hits=torch.tensor(int(rep_elig.sum()), dtype=i32),
         range_hits=torch.tensor(range_hits, dtype=i32),
         ent_hits=ent_hits)
 

@@ -21,8 +21,9 @@ reference's line for line.
 RANGE scans (DESIGN.md §16) complete here: item rows accumulate until the
 terminal count says the set is whole. Background Split, Move and Merge
 are host commands that claim a slot of a shard's table (``split``,
-``move``, ``merge``). Read replication raises ``NotImplementedError``
-until its slice lands.
+``move``, ``merge``). Read replication (DESIGN.md §15) is driven by the
+``replicate``/``drop_replica`` commands, journaled like them;
+``replica_sets`` is the routing view clients read.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from . import messages as M
 from . import range_scan as RS
 from . import refs
 from . import registry as reg_ops
+from . import replica as R
 from .durability import Durability, validate_crash_plans, wal
 from .durability.recovery import completions_array
 from .membership import (Membership, epoch_broadcast, moves_targeting,
@@ -46,8 +48,6 @@ from .net import Nemesis, NemesisConfig, Transport, trace_entry
 from .shard import shard_round
 from .types import (DiLiConfig, KEY_MAX, KEY_MIN, SH_KEY, ST_KEY,
                     ShardState, init_shard, resolve_device)
-
-LATER_SLICE = "a later slice of the port (ROADMAP Queue 1)"
 
 _NO_ROWS = np.zeros((0, M.FIELDS), np.int32)
 
@@ -316,7 +316,14 @@ class Cluster:
         # per-entry op-rate EWMA (keyed by entry keymax) — the balancer's
         # load signal, fed from every round's RoundOut.ent_hits
         self.op_rate_ewma: Dict[int, float] = {}
+        # per-shard EWMA of replica-served FINDs (keyed by shard id): the
+        # balancer folds it into shard load so serving replicas do not
+        # read as idle
         self.rep_rate_ewma: Dict[int, float] = {}
+        # host-authoritative replica map (keymax -> (primary, targets)),
+        # kept by replicate/drop_replica; replica_epoch bumps on every
+        # change so clients know to refresh their routing
+        self._replica_map: Dict[int, Tuple[int, set]] = {}
         self.replica_epoch = 0
 
     # ------------------------------------------------------------ client API
@@ -552,6 +559,7 @@ class Cluster:
         out_counts: List[int] = []
         comp_by_shard: List[np.ndarray] = []
         ent_rates: Dict[int, int] = {}
+        rep_served: Dict[int, int] = {}
         for s, out in enumerate(outs):
             if out is None:                      # crashed: emitted nothing
                 out_counts.append(0)
@@ -563,7 +571,10 @@ class Cluster:
             self.stats["mut_hits"] += int(out.mut_hits)
             self.stats["move_hits"] += int(out.move_hits)
             self.stats["blk_hits"] += int(out.blk_hits)
-            self.stats["rep_hits"] += int(out.rep_hits)
+            rh = int(out.rep_hits)
+            self.stats["rep_hits"] += rh
+            if rh:
+                rep_served[s] = rep_served.get(s, 0) + rh
             self.stats["range_hits"] += int(out.range_hits)
             self.stats["max_bg_active"] = max(self.stats["max_bg_active"],
                                               int(out.bg_active))
@@ -622,6 +633,16 @@ class Cluster:
         for k, h in ent_rates.items():
             nxt_rates[k] = nxt_rates.get(k, 0.0) + alpha * h
         self.op_rate_ewma = nxt_rates
+        # per-shard replica-service EWMA: FINDs served from replicas are
+        # real load the entry rates (keyed on the primary) do not see
+        nxt_rep: Dict[int, float] = {}
+        for s2, v in self.rep_rate_ewma.items():
+            d = v * (1.0 - alpha)
+            if d > 1e-3:
+                nxt_rep[s2] = d
+        for s2, h in rep_served.items():
+            nxt_rep[s2] = nxt_rep.get(s2, 0.0) + alpha * h
+        self.rep_rate_ewma = nxt_rep
 
         # host->shard membership announcements join the routed stream
         # after the shard outboxes, so they are partitioned and
@@ -774,15 +795,62 @@ class Cluster:
                                         bool(ok))
 
     def replicate(self, s: int, entry_keymax: int, target: int) -> bool:
-        raise NotImplementedError(f"replication comes with {LATER_SLICE}")
+        """Start (or widen) read replication of the entry ``s`` owns with
+        upper bound ``entry_keymax`` onto shard ``target`` (§15): a host
+        edit of the shard's sessions, journaled (``CMD_REPLICATE``) so
+        recovery replays it."""
+        if not self.cfg.replication:
+            raise ValueError(
+                "replicate: cfg.replication is off — replica serve and "
+                "publication do not run in shard_round")
+        self.states[s], ok = R.queue_replicate(
+            self.states[s], self.cfg, entry_keymax, target)
+        self._log_command(s, wal.CMD_REPLICATE, (entry_keymax, target), ok)
+        if ok:
+            _, tg = self._replica_map.get(entry_keymax, (s, set()))
+            self._replica_map[int(entry_keymax)] = (s, set(tg) | {int(target)})
+            self.replica_epoch += 1
+        return ok
 
     def drop_replica(self, s: int, entry_keymax: int,
                      target: int = -1) -> bool:
-        raise NotImplementedError(f"replication comes with {LATER_SLICE}")
+        """Retire replicas of ``entry_keymax`` on ``target`` (-1 = all)."""
+        if not self.cfg.replication:
+            raise ValueError("drop_replica: cfg.replication is off")
+        self.states[s], ok = R.queue_drop_replica(
+            self.states[s], self.cfg, entry_keymax, target)
+        self._log_command(s, wal.CMD_DROP_REPLICA,
+                          (entry_keymax, target), ok)
+        if entry_keymax in self._replica_map:
+            prim, tg = self._replica_map[entry_keymax]
+            tg = set() if target < 0 else set(tg) - {int(target)}
+            if tg:
+                self._replica_map[entry_keymax] = (prim, tg)
+            else:
+                del self._replica_map[entry_keymax]
+            self.replica_epoch += 1
+        return ok
 
     def replica_sets(self):
-        """No replicas exist on this slice."""
-        return {}
+        """Live replica routing view for clients: ``{keymax: (keymin,
+        primary, [replica shards])}``. Entries whose primary no longer
+        owns a matching registry entry are pruned (ownership moved; the
+        session's self-audit drops those replicas anyway)."""
+        out = {}
+        stale = []
+        for kmax, (prim, tg) in self._replica_map.items():
+            reg = self.states[prim].registry
+            kmaxes = _np(reg.keymax)[:int(reg.size)]
+            at = np.nonzero(kmaxes == kmax)[0]
+            if not (at.size and refs.ref_sid(int(reg.subhead[at[0]]))
+                    == prim):
+                stale.append(kmax)
+                continue
+            out[int(kmax)] = (int(reg.keymin[at[0]]), int(prim), sorted(tg))
+        for kmax in stale:
+            del self._replica_map[kmax]
+            self.replica_epoch += 1
+        return out
 
     def middle_item(self, s: int, head_idx: int) -> Optional[int]:
         """Pool idx of the middle live item of a sublist (split point)."""

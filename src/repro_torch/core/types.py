@@ -113,26 +113,31 @@ class Blocks(NamedTuple):
 
 
 class RepSessions(NamedTuple):
-    """Primary-side replication sessions. All-free on this slice (no
-    replication), kept so digests line up with the reference."""
-    keymax: torch.Tensor
-    targets: torch.Tensor
-    drops: torch.Tensor
-    version: torch.Tensor
-    cursor: torch.Tensor
-    age: torch.Tensor
-    keys: torch.Tensor
-    diff: torch.Tensor
+    """Primary-side replication sessions (DESIGN.md §15): one row per
+    entry this shard publishes read replicas of, keyed by the entry's
+    keymax (stable under unrelated splits and merges). ``keys`` is the
+    image last committed to (or streaming to) the replicas; ``diff`` marks
+    the positions of the publication still to stream."""
+    keymax: torch.Tensor   # int32[S]; SH_KEY = free session
+    targets: torch.Tensor  # int32[S] live replica bitmask (bit t = shard t)
+    drops: torch.Tensor    # int32[S] bitmask of targets owed a DROP row
+    version: torch.Tensor  # int32[S] publication version counter
+    cursor: torch.Tensor   # int32[S] stream position; -1 = idle/committed
+    age: torch.Tensor      # int32[S] rounds since the last commit
+    keys: torch.Tensor     # int32[S, C] published image, padding = ST_KEY
+    diff: torch.Tensor     # bool[S, C] positions still to stream
 
 
 class ReplicaSlots(NamedTuple):
-    """Replica-side read-only images. All-free on this slice."""
-    keymax: torch.Tensor
-    keymin: torch.Tensor
-    src: torch.Tensor
-    version: torch.Tensor
-    ttl: torch.Tensor
-    keys: torch.Tensor
+    """Replica-side read-only images (DESIGN.md §15): a slot serves FINDs
+    in (keymin, keymax] while committed (version >= 0) and leased
+    (ttl > 0)."""
+    keymax: torch.Tensor   # int32[R]; SH_KEY = free slot
+    keymin: torch.Tensor   # int32[R]
+    src: torch.Tensor      # int32[R] the primary that installed it
+    version: torch.Tensor  # int32[R] committed version; -1 = streaming
+    ttl: torch.Tensor      # int32[R] staleness lease, rounds left
+    keys: torch.Tensor     # int32[R, C] image, padding = ST_KEY
 
 
 class ShardState(NamedTuple):

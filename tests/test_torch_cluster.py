@@ -13,10 +13,10 @@ C3  Carry-over: a reference run's states, background tables and backlog
     are carried into the port through ``repro_torch.convert`` mid-stream
     (a Split in flight) and both continue on the same feed in lockstep.
 C4  Guards: the package imports neither ``jax`` nor ``repro``; entry points
-    default to CUDA and raise without it; read replication, the one part
-    not ported yet, raises (a WAL holding a replication command included);
-    the transport's nemesis, a membership join and a WAL run, equal to
-    the reference.
+    default to CUDA and raise without it; what is not ported yet (the
+    SPMD backend, ``forward_train``, the int8 KV cache, the non-dense
+    families) raises; the transport's nemesis, a membership join and a
+    WAL run, equal to the reference.
 """
 import ast
 import os
@@ -43,8 +43,6 @@ import repro_torch.data.ycsb as TY
 from repro.core.oracle import OracleList
 from repro_torch import convert
 from repro_torch.core import bg as TB
-from repro_torch.core import messages as TM
-from repro_torch.core import shard as TS
 
 from torch_parity import assert_trees_equal, digest
 
@@ -277,35 +275,23 @@ def test_c4_entry_points_default_to_cuda():
 
 
 def test_c4_work_outside_the_slice_raises():
-    cfg = TT.DiLiConfig(**KW)
-    state = TT.init_shard(cfg, 0, bootstrap=True, device="cpu")
-    bg = TB.init_bg_table(cfg, device="cpu")
-    none = np.zeros((0, TM.FIELDS), np.int32)
-    for kind in (TM.MSG_REPLICA_DELTA, TM.MSG_REPLICA_INSTALL,
-                 TM.MSG_REPLICA_DROP):
-        row = TM.make_row(kind, 0, 0)[None]
-        with pytest.raises(NotImplementedError):
-            TS.shard_round(state, bg, 0, row, none, cfg)
-    with pytest.raises(NotImplementedError):
-        TS.shard_round(state, bg, 0, none, none,
-                       cfg._replace(replication=True))
-
-    cl = TSIM.Cluster(cfg, device="cpu")
-    for call in (lambda: cl.replicate(0, JT.KEY_MAX, 1),
-                 lambda: cl.drop_replica(0, JT.KEY_MAX, 1)):
-        with pytest.raises(NotImplementedError):
-            call()
-
-    # a WAL holding a read-replication command cannot be replayed yet: the
-    # recovery raises instead of skipping the record
-    import tempfile
-    from repro_torch.core.durability import Durability, wal
-    with tempfile.TemporaryDirectory() as d:
-        dur = Durability(d, cfg)
-        dur.ensure_genesis(0, state, bg, none, {})
-        dur.log_command(0, 0, wal.CMD_REPLICATE, (JT.KEY_MAX, 1), True)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            dur.recover(0, in_cap=64, device="cpu")
+    # the SPMD backend (ROADMAP Queue 1 item 12) is not in the port
+    assert not hasattr(TA, "ShardMapBackend")
+    # nor are forward_train, the int8 KV cache and the non-dense families
+    # (item 14): each raises rather than running something else
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models import transformer as TR
+    dense = get_smoke_config("qwen2_0_5b")
+    with pytest.raises(NotImplementedError, match="forward_train"):
+        TR.forward_train(None, dense, None)
+    with pytest.raises(NotImplementedError, match="int8"):
+        TR.check_supported(dense.replace(kv_quant=True))
+    others = [n for n in ARCH_IDS if get_smoke_config(n).family != "dense"
+              or get_smoke_config(n).modality != "text"]
+    assert len(others) == 6, others
+    for name in others:
+        with pytest.raises(NotImplementedError, match="family"):
+            TR.check_supported(get_smoke_config(name))
 
 
 def _fault_run(pkg, case, tmp):

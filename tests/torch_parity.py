@@ -13,6 +13,16 @@ from __future__ import annotations
 import hashlib
 
 import numpy as np
+import torch
+
+# The port's CPU rounds are many small tensor ops. At torch's default of
+# one intra-op thread per core, test processes side by side (pytest-xdist
+# workers) oversubscribe the cores and a file runs several times slower
+# than alone (on an 8-core CPU, three zipf files at once took ~250 s each
+# against 38-61 s alone); one thread per process keeps each near its
+# solo time. Every worker imports this module when it collects the
+# port's tests.
+torch.set_num_threads(1)
 
 
 def canonical(leaf) -> np.ndarray:
