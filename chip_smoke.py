@@ -52,29 +52,43 @@ which makes the script exit non-zero when it fails:
                replay's ``move_hits``, hops, keys per server), and
                ``hybrid_search`` launches on every server; the per-phase
                breakdown includes ``replay_prepass`` and ``bg_step``;
-  6a. nemesis — the reference's B2 schedule (corpus entry mixed-p02 on
+  6a. shardmap4 — the same run through the SPMD backend
+               (``ShardMapBackend``: every server's round, its outbox
+               bucketed by destination and the buckets exchanged on the
+               card by a transpose): the counts equal the reference
+               ``ShardMapBackend``'s (``SHARDMAP4_EXPECTED``: fig3b4's
+               rounds, Move hits and keys, no fast-path lanes in its
+               stats), ``check_against_results``, ``hybrid_search`` on
+               every server; ops/s and ms per round beside fig3b4's,
+               the ``bucket`` and ``exchange`` spans;
+  6b. shardmap_faults — the SPMD backend's host-routed round under the
+               lossy wire: the reference's N5 (``SHARDMAP_NEMESIS``) and
+               its ShardMap crash schedule (``SHARDMAP_CRASH``, a WAL in
+               a temporary directory), each against the sequential
+               oracle with the reference's trace digest;
+  6c. nemesis — the reference's B2 schedule (corpus entry mixed-p02 on
                two servers, key space 300, block probe) through the
                reliable transport over a lossy wire: every result and the
                key set equal the sequential oracle's, the round trace's
                digest equals the reference's (``NEMESIS_B2_DIGEST``), the
                probe answers lanes and ``hybrid_search`` runs on both
                servers;
-  6b. crash  — corpus entry crash-during-move-copy with the block probe:
+  6d. crash  — corpus entry crash-during-move-copy with the block probe:
                server 1 is killed mid-Move and recovers from its WAL and
                snapshot (in a temporary directory) on the card; trace
                digest ``CRASH_DIGEST``, one recovery that replays rounds,
                the oracle; ms per recovery;
-  6c. membership — ``SCALE_3_5_2`` (3 servers → 5 → 2 under traffic, no
+  6e. membership — ``SCALE_3_5_2`` (3 servers → 5 → 2 under traffic, no
                nemesis): trace digest with its ``mb`` lines
                (``MEMBERSHIP_DIGEST``) and the final active set;
-  6d. nemesis4 — fig3b4's configuration, load and a ``NEMESIS4`` r50
+  6f. nemesis4 — fig3b4's configuration, load and a ``NEMESIS4`` r50
                mix through ``DiLiClient`` over the lossy wire, with server
                1 crashed and recovered in the mix and the WAL in a
                temporary directory: the sequential oracle, one recovery,
                quiescence; rounds, ms per round and ops/s beside fig3b4's
                clean mix, transport counters, WAL bytes and fsync ms per
                round, recovery ms, the breakdown and launches per server;
-  6e. zipf   — ``benchmarks/run.py::zipf`` at theta 0.99 (``ZIPF``: 4
+  6g. zipf   — ``benchmarks/run.py::zipf`` at theta 0.99 (``ZIPF``: 4
                servers, the block probe, the balancer's hot-entry stage),
                read replication on and off, through ``DiLiClient``:
                rounds, the measured mix's ``rep_hits`` and the digest of
@@ -84,7 +98,7 @@ which makes the script exit non-zero when it fails:
                server; ops/s on and off, their ratio, ms per round and
                the breakdown with the ``replica_serve`` and
                ``replica_step`` spans;
-  6f. replica_nemesis — ``tests/test_replica.py``'s nemesis differential
+  6h. replica_nemesis — ``tests/test_replica.py``'s nemesis differential
                with replication forced on (``REPLICA_NEMESIS``): the
                windowed referee for replica-served FINDs, the exact
                oracle for the rest, the round trace's digest
@@ -148,6 +162,13 @@ FIG3B4_EXPECTED = dict(load_rounds=8, settle_rounds=120, mix_rounds=49,
                        fast_hits=662, mut_hits=704, blk_hits=1278,
                        move_hits=1327, max_hops=2, owned=[517, 554, 544, 303])
 
+# the same run through the SPMD backend (ShardMapBackend, the routed
+# round with the Local exchange), as the reference's ShardMapBackend gives
+# it: the rounds, Move hits and keys of FIG3B4_EXPECTED, and fast_hits =
+# mut_hits = 0, since the SPMD round's stats lanes carry no fast-path
+# counts. tests/test_torch_shardmap_fig3b.py recomputes it
+SHARDMAP4_EXPECTED = dict(FIG3B4_EXPECTED, fast_hits=0, mut_hits=0)
+
 # benchmarks/run.py::rebalance part A: rounds to move one 125-key sublist
 # between two servers at move_batch K, as the reference gives them
 # (tests/test_torch_fig3b.py recomputes them)
@@ -195,6 +216,24 @@ CRASH_DIGEST = \
 MEMBERSHIP_DIGEST = \
     "06b395377997b04ad7847781dd52d4d1c25bc3aef06951c57c9e9556b82d46fd"
 MEMBERSHIP_ACTIVE = [0, 1]
+
+# the [shardmap_faults] schedules, on the SPMD backend's host-routed
+# round at the harness's shardmap size: the reference's N5
+# (tests/test_nemesis.py, seed 11, 200 ops, default_nemesis(0.15)) and
+# its ShardMap crash differential (tests/test_durability.py, seed 31, 150
+# ops, server 1 down from round 40 to 80). The digests are their round
+# traces' as the reference's ShardMapBackend gives them
+# (tests/test_torch_shardmap_faults.py recomputes both)
+SHARDMAP_NEMESIS = dict(seed=11, n_ops=200, config=dict(
+    drop_prob=0.15, dup_prob=0.15, reorder_prob=0.15, delay_prob=0.075,
+    delay_rounds=3))
+SHARDMAP_CRASH = dict(seed=31, n_ops=150, config=dict(
+    drop_prob=0.05, dup_prob=0.05, reorder_prob=0.05,
+    crashes=[[1, 40, 80]]))
+SHARDMAP_NEMESIS_DIGEST = \
+    "e9f0e5545e830f45376eca498551f1d8310b35c8bb7ba3fd41fa65f8bd3b84de"
+SHARDMAP_CRASH_DIGEST = \
+    "13f4355126ea02e803b72e609598eb316cbbe805506e3a9463657c7eee8d0062"
 
 # the [nemesis4] run: fig3b4's configuration and load (1,500 keys over
 # 6,000, seed 3), then mix_ops r50 ops (seed 4), under the wire faults of
@@ -501,13 +540,14 @@ def rebalance_move(cluster_cls, cfg_cls, op_insert: int, k: int,
 
 class ShardLaunches:
     """Counts ``hybrid_search`` launches per server: wraps the round
-    function the cluster calls, reading the wrapper's count around each
-    server's round. ``with ShardLaunches() as per: ...`` leaves
-    ``per[s]``."""
+    function both backends call (``Cluster`` and the SPMD round), reading
+    the wrapper's count around each server's round. ``with
+    ShardLaunches() as per: ...`` leaves ``per[s]``."""
 
     def __enter__(self):
-        from repro_torch.core import sim
+        from repro_torch.core import distributed, sim
         from repro_torch.kernels import ops as K
+        self.mods = (sim, distributed)
         self.per = {}
         self.orig = sim.shard_round
 
@@ -518,12 +558,13 @@ class ShardLaunches:
                 + K.hybrid_search.launches - n0
             return out
 
-        sim.shard_round = counted
+        for mod in self.mods:
+            mod.shard_round = counted
         return self.per
 
     def __exit__(self, *exc):
-        from repro_torch.core import sim
-        sim.shard_round = self.orig
+        for mod in self.mods:
+            mod.shard_round = self.orig
         return False
 
 
@@ -543,14 +584,43 @@ def moves_by_target(backend):
     return targets
 
 
-def nemesis_cfg(num_shards: int = 4, **kw):
-    """``tests/nemesis_harness.py::small_cfg`` (the local backend's
-    size), with ``DiLiConfig`` fields overridden by ``kw``."""
+def nemesis_cfg(num_shards: int = 4, *, backend: str = "local", **kw):
+    """``tests/nemesis_harness.py::small_cfg`` at the size it gives
+    ``backend`` (``"local"``, or the smaller ``"shardmap"`` one), with
+    ``DiLiConfig`` fields overridden by ``kw``."""
     from repro_torch.core.types import DiLiConfig
-    return DiLiConfig(num_shards=num_shards, pool_capacity=4096,
-                      max_sublists=32, max_ctrs=32, max_scan=4096,
-                      batch_size=16, mailbox_cap=256, move_batch=8)._replace(
-                          **kw)
+    if backend == "local":
+        cfg = DiLiConfig(num_shards=num_shards, pool_capacity=4096,
+                         max_sublists=32, max_ctrs=32, max_scan=4096,
+                         batch_size=16, mailbox_cap=256, move_batch=8)
+    else:
+        cfg = DiLiConfig(num_shards=num_shards, pool_capacity=1024,
+                         max_sublists=16, max_ctrs=16, max_scan=1024,
+                         batch_size=8, mailbox_cap=64, move_batch=4)
+    return cfg._replace(**kw)
+
+
+def make_backend(backend: str, cfg, **kw):
+    """``tests/nemesis_harness.py::make_backend`` on the port: a
+    ``LocalBackend`` or a ``ShardMapBackend`` of ``cfg``."""
+    from repro_torch.api import LocalBackend, ShardMapBackend
+    if backend == "local":
+        return LocalBackend(cfg, **kw)
+    if backend == "shardmap":
+        kw.pop("trace", None)        # the SPMD backend always traces
+        return ShardMapBackend(cfg, **kw)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+def round_no(backend) -> int:
+    """The rounds a backend has run."""
+    return backend.cluster.round_no if hasattr(backend, "cluster") \
+        else backend.round_no
+
+
+def round_trace(backend) -> list:
+    return backend.cluster.round_trace if hasattr(backend, "cluster") \
+        else backend.round_trace
 
 
 def nemesis_differential(seed: int, nemesis, *, n_ops: int = 600,
@@ -558,9 +628,11 @@ def nemesis_differential(seed: int, nemesis, *, n_ops: int = 600,
                          ops_per_round: int = 8, split_threshold: int = 24,
                          drain_rounds: int = 12000, cfg_overrides=None,
                          balancer_kwargs=None, scan_every: int = 0,
-                         device="cuda", durability=None, timer=None) -> dict:
-    """``tests/nemesis_harness.py::run_differential`` on the port's local
-    backend: a load of keys, then rounds of mixed FIND/INSERT/REMOVE
+                         device="cuda", durability=None, timer=None,
+                         backend: str = "local") -> dict:
+    """``tests/nemesis_harness.py::run_differential`` on the port's
+    ``backend`` (``"local"`` or ``"shardmap"``, each at the harness's
+    size for it): a load of keys, then rounds of mixed FIND/INSERT/REMOVE
     through ``DiLiClient`` (per-key FIFO admission makes the sequential
     oracle exact) with a seeded ``Balancer`` (``balancer_kwargs`` reach
     it) racing Splits, Moves, Merges and, with ``cfg.replication``,
@@ -578,18 +650,19 @@ def nemesis_differential(seed: int, nemesis, *, n_ops: int = 600,
     ``replica_window`` in the result is that window, 0 without
     replication."""
     import numpy as np
-    from repro_torch.api import DiLiClient, LocalBackend
+    from repro_torch.api import DiLiClient
     from repro_torch.core.balancer import Balancer
     from repro_torch.core.oracle import OracleList
     from repro_torch.core.types import OP_FIND, OP_INSERT, OP_REMOVE
 
-    cfg = nemesis_cfg(num_shards, **(cfg_overrides or {}))
+    kind = backend
+    cfg = nemesis_cfg(num_shards, backend=kind, **(cfg_overrides or {}))
     if scan_every:
         cfg = cfg._replace(
             range_scan=True,
             mailbox_cap=max(cfg.mailbox_cap,
                             cfg.range_lanes * (cfg.range_batch + 1) + 64))
-    backend = LocalBackend(cfg, seed=seed, nemesis=nemesis,
+    backend = make_backend(kind, cfg, seed=seed, nemesis=nemesis,
                            durability=durability, device=device, timer=timer)
     bal = Balancer(backend, split_threshold=split_threshold,
                    merge_threshold=6, rng=backend.balancer_rng,
@@ -675,17 +748,16 @@ def nemesis_differential(seed: int, nemesis, *, n_ops: int = 600,
                 windowed += 1
                 continue
             mismatches.append((fut.kind, fut.key, e, got))
-    cl = backend.cluster
     final = backend.all_keys()
     return dict(mismatches=mismatches, scan_mismatches=scan_mismatches,
                 replica_window=window, replica_windowed=windowed,
                 n_scans=len(scans), final_keys=final,
                 oracle_keys=sorted(oracle.snapshot()),
                 keys_match=final == sorted(oracle.snapshot()),
-                quiescent=backend.quiescent(), rounds=cl.round_no,
+                quiescent=backend.quiescent(), rounds=round_no(backend),
                 net_stats=dict(backend.net.stats),
                 nemesis_stats=dict(backend.net.nemesis.stats),
-                trace=cl.round_trace, backend=backend)
+                trace=round_trace(backend), backend=backend)
 
 
 def check_differential(what: str, res: dict) -> None:
@@ -934,21 +1006,25 @@ def membership_differential(seed: int, nemesis, *, schedule=SCALE_3_5_2,
                             capacity: int = 6, initial_shards: int = 3,
                             ops_per_round: int = 8,
                             drain_rounds: int = 20000, trace: bool = True,
-                            device="cuda") -> dict:
+                            device="cuda", backend: str = "local") -> dict:
     """``tests/membership_harness.py::run_membership_differential`` on the
-    port's local backend: a cluster of ``capacity`` slots boots with
+    port's ``backend`` (``"local"`` or ``"shardmap"``, at the harness's
+    size for it): a cluster of ``capacity`` slots boots with
     ``initial_shards`` active, and ``schedule`` joins and retires shards
-    under continuous mixed traffic through ``DiLiClient``. The round trace
-    is on (``trace``) even without a nemesis: its ``mb`` lines witness the
-    membership changes. Returns the harness's result fields and the
-    backend."""
+    under continuous mixed traffic through ``DiLiClient``. The local
+    backend's round trace is on (``trace``) even without a nemesis: its
+    ``mb`` lines witness the membership changes (the SPMD backend traces
+    its host-routed rounds, those under a nemesis). Returns the harness's
+    result fields and the backend."""
     import numpy as np
-    from repro_torch.api import DiLiClient, LocalBackend
+    from repro_torch.api import DiLiClient
     from repro_torch.core.balancer import Balancer
     from repro_torch.core.oracle import OracleList
     from repro_torch.core.types import OP_FIND, OP_INSERT, OP_REMOVE
 
-    backend = LocalBackend(nemesis_cfg(capacity), seed=seed, nemesis=nemesis,
+    kind = backend
+    backend = make_backend(kind, nemesis_cfg(capacity, backend=kind),
+                           seed=seed, nemesis=nemesis,
                            initial_shards=initial_shards, trace=trace,
                            device=device)
     bal = Balancer(backend, split_threshold=24, merge_threshold=6,
@@ -957,7 +1033,6 @@ def membership_differential(seed: int, nemesis, *, schedule=SCALE_3_5_2,
     oracle = OracleList()
     rng = np.random.default_rng(seed + 1)
     mb = backend.membership
-    cl = backend.cluster
 
     n_load = min(max(key_space // 4, 20), 150)
     base = rng.permutation(np.arange(1, key_space))[:n_load].tolist()
@@ -972,14 +1047,14 @@ def membership_differential(seed: int, nemesis, *, schedule=SCALE_3_5_2,
         if not pending or mb.joining or mb.draining:
             return
         due, op, shard = pending[0]
-        if cl.round_no < due:
+        if round_no(backend) < due:
             return
         if op == "join":
             shard = backend.join_shard(shard)
         else:
             shard = max(mb.active) if shard is None else shard
             backend.retire_shard(shard)
-        fired.append((cl.round_no, op, shard))
+        fired.append((round_no(backend), op, shard))
         pending.pop(0)
 
     done = stall = 0
@@ -998,7 +1073,7 @@ def membership_differential(seed: int, nemesis, *, schedule=SCALE_3_5_2,
             # the change in flight, then idle-step to the next due round
             client.settle(max_rounds=drain_rounds)
             if pending and not (mb.joining or mb.draining) \
-                    and cl.round_no < pending[0][0]:
+                    and round_no(backend) < pending[0][0]:
                 client.pump()
             stall += 1
             check(stall <= drain_rounds,
@@ -1016,11 +1091,11 @@ def membership_differential(seed: int, nemesis, *, schedule=SCALE_3_5_2,
     return dict(mismatches=mismatches, scan_mismatches=[],
                 final_keys=final, oracle_keys=sorted(oracle.snapshot()),
                 keys_match=final == sorted(oracle.snapshot()),
-                quiescent=backend.quiescent(), rounds=cl.round_no,
+                quiescent=backend.quiescent(), rounds=round_no(backend),
                 schedule_done=not pending, fired=fired, view=mb.view(),
                 mb_log=list(mb.log),
                 expected_active=initial_shards + 2 * n_joins - len(fired),
-                trace=cl.round_trace, backend=backend)
+                trace=round_trace(backend), backend=backend)
 
 
 # ------------------------------------------------------------------ phases
@@ -1714,23 +1789,18 @@ def phase_rebalance() -> dict:
     return rec
 
 
-def phase_fig3b4() -> dict:
-    """fig3b's 4-server run (``benchmarks/run.py::fig3b``, block probe
-    on): load, settle and the r50 mix under the balancer every 4th round,
-    with the per-phase timer on (its syncs are the only difference from
-    an untimed run). The key set must agree with the ops' results, the
-    counts equal ``FIG3B4_EXPECTED``, and ``hybrid_search`` must launch on
-    every server."""
+def fig3b4_run(backend, timer) -> dict:
+    """fig3b's load, settle and r50 mix on ``backend`` (the balancer every
+    4th round), ``timer`` reset after the settle: the ops' results, the
+    counts, the seconds of load + settle and of the mix, the per-round
+    breakdowns, the pre-pass walk's steps in the mix, and
+    ``hybrid_search``'s launches in all and per server."""
     import torch
-    from repro_torch.api import LocalBackend
+    from repro_torch.core import traverse
     from repro_torch.core.balancer import Balancer
     from repro_torch.kernels import ops as K
-    from repro_torch.timing import PhaseTimer
 
     (load_kinds, load_keys), (kinds, keys) = fig3b4_workload()
-    timer = PhaseTimer("cuda")
-    backend = LocalBackend(bench_cfg(num_shards=4), device="cuda",
-                           timer=timer)
     bal = Balancer(backend)
     ops = []
     K.hybrid_search.launches = 0
@@ -1745,38 +1815,104 @@ def phase_fig3b4() -> dict:
         settle_end = backend.stats["rounds"]
         bd_settle = breakdown(timer, settle_end)
         timer.reset()
+        steps = traverse.probe_batch.steps
         t0 = time.perf_counter()
         drive_backend(backend, kinds, keys, 64, balancer=bal, log=ops)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    launches = K.hybrid_search.launches
-
+        steps = traverse.probe_batch.steps - steps
     check(len(ops) == len(load_kinds) + len(kinds),
           f"fig3b4: {len(ops)} results for "
           f"{len(load_kinds) + len(kinds)} ops")
-    check_against_results("fig3b4", ops, backend.all_keys())
     counts = fig3b4_counts(backend, load_end, settle_end)
+    return dict(ops=ops, n_mix=len(kinds), counts=counts, t_set=t_set,
+                dt=dt, settle_end=settle_end, bd_settle=bd_settle,
+                bd=breakdown(timer, counts["mix_rounds"]), walk_steps=steps,
+                launches=K.hybrid_search.launches,
+                per_server=dict(per_server))
+
+
+def phase_fig3b4() -> dict:
+    """fig3b's 4-server run (``benchmarks/run.py::fig3b``, block probe
+    on): load, settle and the r50 mix under the balancer every 4th round,
+    with the per-phase timer on (its syncs are the only difference from
+    an untimed run). The key set must agree with the ops' results, the
+    counts equal ``FIG3B4_EXPECTED``, and ``hybrid_search`` must launch on
+    every server."""
+    from repro_torch.api import LocalBackend
+    from repro_torch.timing import PhaseTimer
+
+    timer = PhaseTimer("cuda")
+    backend = LocalBackend(bench_cfg(num_shards=4), device="cuda",
+                           timer=timer)
+    r = fig3b4_run(backend, timer)
+    counts, per_server, dt = r["counts"], r["per_server"], r["dt"]
+    check_against_results("fig3b4", r["ops"], backend.all_keys())
     check(counts == FIG3B4_EXPECTED,
           f"fig3b4: counts {counts} != reference {FIG3B4_EXPECTED}")
     check(all(per_server.get(s, 0) > 0 for s in range(4)),
           f"fig3b4: hybrid_search launches per server {per_server}: not "
           f"every server's pre-pass reached the kernel")
     mix_rounds = counts["mix_rounds"]
-    bd = breakdown(timer, mix_rounds)
-    log(f"[fig3b4] 4 servers, r50 block probe: {len(kinds) / dt:.1f} ops/s "
+    settle_end, t_set = r["settle_end"], r["t_set"]
+    log(f"[fig3b4] 4 servers, r50 block probe: {r['n_mix'] / dt:.1f} ops/s "
         f"over the mix ({mix_rounds} rounds, {dt:.3f} s, "
         f"{1e3 * dt / mix_rounds:.3f} ms/round); load + settle "
         f"{settle_end} rounds in {t_set:.1f} s "
         f"({1e3 * t_set / settle_end:.3f} ms/round); counts equal the "
-        f"reference: {counts}; hybrid_search launches {launches}, per "
+        f"reference: {counts}; hybrid_search launches {r['launches']}, per "
         f"server {dict(sorted(per_server.items()))}")
     log(f"[fig3b4] per-round ms over load + settle (the Moves): "
-        f"{json.dumps(bd_settle)}")
-    log(f"[fig3b4] per-round ms over the mix: {json.dumps(bd)}")
-    return dict(ops_per_s=len(kinds) / dt, ms_per_round=1e3 * dt / mix_rounds,
+        f"{json.dumps(r['bd_settle'])}")
+    log(f"[fig3b4] per-round ms over the mix: {json.dumps(r['bd'])}; "
+        f"{walk_ms_per_step(timer, r['walk_steps'], mix_rounds)}")
+    return dict(ops_per_s=r["n_mix"] / dt, ms_per_round=1e3 * dt / mix_rounds,
                 settle_ms_per_round=1e3 * t_set / settle_end,
-                launches=launches, per_server=per_server, breakdown=bd,
-                breakdown_settle=bd_settle, counts=counts)
+                launches=r["launches"], per_server=per_server,
+                breakdown=r["bd"], breakdown_settle=r["bd_settle"],
+                counts=counts)
+
+
+def phase_shardmap4(f3b: dict) -> dict:
+    """fig3b4's configuration and workload through the SPMD backend
+    (``ShardMapBackend``: the routed round, buckets exchanged on the card
+    by the Local exchange), with ``Balancer`` and ``drive_backend`` as in
+    ``[fig3b4]``. The key set agrees with the ops' results, the counts
+    equal ``SHARDMAP4_EXPECTED`` and ``hybrid_search`` launches on every
+    server; ops/s and ms per round beside ``[fig3b4]``'s, and the
+    ``bucket`` and ``exchange`` spans per round."""
+    from repro_torch.api import ShardMapBackend
+    from repro_torch.timing import PhaseTimer
+
+    timer = PhaseTimer("cuda")
+    t0 = time.perf_counter()
+    backend = ShardMapBackend(bench_cfg(num_shards=4), device="cuda",
+                              timer=timer)
+    r = fig3b4_run(backend, timer)
+    counts, per_server, dt = r["counts"], r["per_server"], r["dt"]
+    check_against_results("shardmap4", r["ops"], backend.all_keys())
+    check(counts == SHARDMAP4_EXPECTED,
+          f"shardmap4: counts {counts} != reference {SHARDMAP4_EXPECTED}")
+    _launch_check("shardmap4", per_server, range(4))
+    mix_rounds = counts["mix_rounds"]
+    bd = r["bd"]
+    ms = 1e3 * dt / mix_rounds
+    log(f"[shardmap4] fig3b4 through ShardMapBackend (Local exchange): "
+        f"{r['n_mix'] / dt:.1f} ops/s over the mix ({mix_rounds} rounds, "
+        f"{dt:.3f} s, {ms:.3f} ms/round) against [fig3b4]'s "
+        f"{f3b['ops_per_s']:.1f} ops/s, {f3b['ms_per_round']:.3f} "
+        f"ms/round; load + settle {r['settle_end']} rounds in "
+        f"{r['t_set']:.1f} s; counts equal the reference's: {counts}; "
+        f"stats {json.dumps(backend.stats)}; hybrid_search launches "
+        f"{r['launches']}, per server {dict(sorted(per_server.items()))}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    log(f"[shardmap4] per-round ms over the mix: bucket "
+        f"{bd.get('bucket', 0.0):.4f}, exchange "
+        f"{bd.get('exchange', 0.0):.4f}; all {json.dumps(bd)}; "
+        f"{walk_ms_per_step(timer, r['walk_steps'], mix_rounds)}")
+    return dict(ops_per_s=r["n_mix"] / dt, ms_per_round=ms,
+                launches=r["launches"], per_server=per_server, breakdown=bd,
+                counts=counts)
 
 
 def phase_scale4(n_keys: int) -> dict:
@@ -2047,6 +2183,53 @@ def phase_membership() -> dict:
         f"active {v['active']} at epoch {v['epoch']}; trace digest (mb "
         f"lines included) equals the reference's")
     return dict(rounds=res["rounds"], seconds=dt)
+
+
+def phase_shardmap_faults() -> dict:
+    """The SPMD backend's host-routed round under the lossy wire:
+    ``SHARDMAP_NEMESIS`` (the reference's N5) and ``SHARDMAP_CRASH``
+    (server 1 killed at round 40 and recovered from its WAL and snapshot
+    at 80, in a temporary directory) through ``nemesis_differential`` at
+    the harness's shardmap size. Each passes the sequential oracle and
+    its round trace digests to the reference's."""
+    import tempfile
+    import torch
+    from repro_torch.core.durability import Durability
+    from repro_torch.core.net import NemesisConfig, trace_digest
+
+    runs = {}
+    for name, e, want in (("nemesis", SHARDMAP_NEMESIS,
+                           SHARDMAP_NEMESIS_DIGEST),
+                          ("crash", SHARDMAP_CRASH, SHARDMAP_CRASH_DIGEST)):
+        with tempfile.TemporaryDirectory(prefix="dili-wal-") as wal_dir:
+            dur = Durability(wal_dir, nemesis_cfg(backend="shardmap"))
+            rec = _TimedRecovery(dur)
+            t0 = time.perf_counter()
+            crashes = len(e["config"].get("crashes", ()))
+            res = nemesis_differential(
+                e["seed"], NemesisConfig.from_dict(e["config"]),
+                n_ops=e["n_ops"], backend="shardmap", device="cuda",
+                durability=dur if crashes else None)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        what = f"shardmap_{name}"
+        check_differential(what, res)
+        digest = trace_digest(res["trace"])
+        check(digest == want, f"{what}: round-trace digest {digest} != "
+                              f"the reference's {want}")
+        check(dur.stats["recoveries"] == crashes == len(rec.ms),
+              f"{what}: {dur.stats['recoveries']} recoveries, want "
+              f"{crashes}")
+        log(f"[shardmap_faults] {name} (seed {e['seed']}, {e['n_ops']} "
+            f"ops, 4 servers, host-routed round): {res['rounds']} rounds "
+            f"in {dt:.2f} s ({1e3 * dt / res['rounds']:.3f} ms/round); "
+            f"trace digest equals the reference's; recovery ms "
+            f"{[round(x, 1) for x in rec.ms]}; transport "
+            f"{res['net_stats']}, wire {res['nemesis_stats']}")
+        runs[name] = dict(rounds=res["rounds"], seconds=dt,
+                          ms_per_round=1e3 * dt / res["rounds"],
+                          recovery_ms=rec.ms)
+    return runs
 
 
 def phase_nemesis4(f3b: dict) -> dict:
@@ -2424,6 +2607,10 @@ def main() -> None:
     phase_client()
     reb = phase_rebalance()
     f3b = phase_fig3b4()
+    t_sm = time.perf_counter()
+    smap = phase_shardmap4(f3b)
+    smf = phase_shardmap_faults()
+    log(f"[spmd] the two SPMD phases in {time.perf_counter() - t_sm:.1f} s")
     t_ft = time.perf_counter()
     nem = phase_nemesis()
     crash = phase_crash()
@@ -2456,6 +2643,8 @@ def main() -> None:
         launches_scale=scale["launches"],
         launches_fig3b4=f3b["launches"],
         launches_fig3b4_per_server=f3b["per_server"],
+        launches_shardmap4=smap["launches"],
+        launches_shardmap4_per_server=smap["per_server"],
         launches_scale4=scale4["launches"],
         launches_scale4_per_server=scale4["per_server"],
         launches_nemesis=nem["launches"],
@@ -2495,6 +2684,13 @@ def main() -> None:
         f"{mship['rounds']}, nemesis4 {nem4['rounds']} (mix "
         f"{nem4['ms_per_round']:.3f} ms/round, recovery "
         f"{nem4['recovery_ms']:.1f} ms)")
+    log(f"[spmd] shardmap4 {smap['ms_per_round']:.3f} ms/round, "
+        f"{smap['ops_per_s']:.1f} ops/s against fig3b4's "
+        f"{f3b['ms_per_round']:.3f} / {f3b['ops_per_s']:.1f}; "
+        f"shardmap_faults nemesis {smf['nemesis']['rounds']} rounds "
+        f"({smf['nemesis']['ms_per_round']:.3f} ms/round), crash "
+        f"{smf['crash']['rounds']} ({smf['crash']['ms_per_round']:.3f} "
+        f"ms/round)")
     log(f"[replication] zipf on/off {zipf['ratio']:.3f}x, "
         f"{zipf['runs']['on']['ms_per_round']:.3f} / "
         f"{zipf['runs']['off']['ms_per_round']:.3f} ms/round, replica_step "

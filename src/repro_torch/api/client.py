@@ -45,7 +45,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from ..core.types import OP_FIND, OP_INSERT, OP_REMOVE
 
-from .backend import LocalBackend
+from .backend import Backend, LocalBackend
 from .futures import BatchResult, OpFuture, RangeResult
 
 
@@ -88,7 +88,7 @@ class DiLiClient:
     benchmarks and tests.
     """
 
-    def __init__(self, backend: LocalBackend, *, route_cache: bool = True,
+    def __init__(self, backend: Backend, *, route_cache: bool = True,
                  balance=None, balance_every: int = 4,
                  home_shard: int = 0,
                  max_inflight: Optional[int] = None):

@@ -1,4 +1,4 @@
 """DiLi core of the port: the data structure and the round protocol."""
-from . import (balancer, batch_apply, bg, blocks, host, membership,  # noqa: F401
-               messages, ops, oracle, refs, registry, shard, sim, traverse,
-               types)
+from . import (balancer, batch_apply, bg, blocks, distributed,  # noqa: F401
+               host, membership, messages, ops, oracle, refs, registry,
+               shard, sim, traverse, types)

@@ -239,6 +239,7 @@ def test_c3_carry_over_through_convert():
 def test_c4_package_imports_neither_jax_nor_reference():
     code = (
         "import importlib, pkgutil, sys, repro_torch\n"
+        "import repro_torch.core.distributed, repro_torch.api\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -268,6 +269,7 @@ def test_c4_entry_points_default_to_cuda():
     for make in (lambda: TSIM.Cluster(cfg),
                  lambda: TA.LocalBackend(cfg),
                  lambda: TA.local_client(cfg),
+                 lambda: TA.ShardMapBackend(cfg),
                  lambda: TT.init_shard(cfg, 0),
                  lambda: TB.init_bg_table(cfg)):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -275,9 +277,7 @@ def test_c4_entry_points_default_to_cuda():
 
 
 def test_c4_work_outside_the_slice_raises():
-    # the SPMD backend (ROADMAP Queue 1 item 12) is not in the port
-    assert not hasattr(TA, "ShardMapBackend")
-    # nor are forward_train, the int8 KV cache and the non-dense families
+    # forward_train, the int8 KV cache and the non-dense families
     # (item 14): each raises rather than running something else
     from repro_torch.configs import ARCH_IDS, get_smoke_config
     from repro_torch.models import transformer as TR
