@@ -38,6 +38,16 @@ which makes the script exit non-zero when it fails:
                lanes the kernel answers skip it). Then a profiler
                window (the device's busy share) and a second run under
                the per-phase timer (the round's breakdown);
+  3a. fig3a_skip — fig3a's DiLi-against-skip-list rows: the skip list
+               (``SKIP``: capacity 2**15, 14 levels, the load in one
+               batch, the mix in batches of 64, its state on the card and
+               each batch's serial pass over a host copy) at r10, r50 and
+               r90, every result and the level-0 chain equal to the
+               sequential oracle's and the digest of results and state to
+               the reference's (``SKIPLIST_EXPECTED``); DiLi with the block
+               probe at r10 against ``FIG3A_R10_EXPECTED``; ops/s of each
+               and ``dili_over_skip_r{10,50}`` (r50's DiLi side is
+               ``[fig3a]``'s run);
   4. client  — a few hundred ops through ``DiLiClient`` futures, each
                result equal to the oracle's;
   5. rebalance — ``benchmarks/run.py::rebalance`` part A: one Move of a
@@ -112,6 +122,19 @@ which makes the script exit non-zero when it fails:
                layer per decode step; then a profiler window (busy share,
                device launches per decode step) and the kernel path
                against the gather path on 4 decode steps;
+  7a. train — Qwen2-0.5B at full width, f32, random weights from a fixed
+               seed, through the port's ``Trainer`` at ``launch/train.py``'s
+               batch 4 x seq 256 (``TRAIN``): 8 steps on one batch, every
+               loss finite, step 1's in the reference smoke test's band,
+               the last below the first, and neither kernel launched; ms
+               per step, tokens/s, peak memory and the device busy share
+               (a profiler window); then at the qwen2_5_3b smoke config
+               (``TRAIN_SMOKE``) the bitwise resume (killed after step 8,
+               resumed from step 5's checkpoint, equal to the
+               uninterrupted run bit for bit, under
+               ``torch.use_deterministic_algorithms``) and step 1's loss
+               on ``numpy_params`` weights against the reference's
+               (``TRAIN_SMOKE_LOSS``, rtol 1e-4);
   8. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
                entries) with ``SCALE_KEYS`` loaded keys and as many r50
                ops, checked against the oracle; then a window of rounds
@@ -130,6 +153,7 @@ The script imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -145,6 +169,42 @@ SRC = ROOT / "src"
 FIG3A_EXPECTED = dict(rounds=107, load_rounds=34, settle_rounds=44,
                       fast_hits=1865, mut_hits=3228, blk_hits=4235,
                       sublists=29, keys=2218)
+
+# fig3a r10 (the write-intensive mix, mixed_phase(4000, 8000, 0.1, seed=2))
+# with the block probe, as the JAX reference gives it; recomputed by
+# tests/test_torch_fig3a.py like FIG3A_EXPECTED
+FIG3A_R10_EXPECTED = dict(rounds=107, load_rounds=34, settle_rounds=44,
+                          fast_hits=366, mut_hits=4513, blk_hits=4006,
+                          sublists=29, keys=2319)
+
+# the skip-list baseline of benchmarks/run.py::fig3a: capacity, tower
+# levels and the mix's batch (the load goes in one batch)
+SKIP = dict(capacity=1 << 15, levels=14, batch=64)
+
+# skiplist_digest of each mix's run (load and mix results, final state), as
+# the JAX reference gives it; tests/test_torch_skiplist.py recomputes these
+# from the reference and from the port on the CPU
+SKIPLIST_EXPECTED = {
+    10: "5121cfff7a2edc321fb15a4154fe9c6688a5c00bfda3ed212f25da0244a5cf31",
+    50: "2e31e43f19bb8ba53c38ab732ca7d71520edc6e65cea6f29a5b0567c17d43eb3",
+    90: "e16846bdc24cf43d81d17287842b33ad6fdd5d9ae4e7df873b4b3cde9758f912"}
+
+# the training phase: Qwen2-0.5B at full width through the port's Trainer,
+# launch/train.py's batch and sequence, one batch memorized for `steps`
+# steps at a learning rate that makes the loss fall, then `timed` steps
+# under the host clock and `profiled` under the profiler
+TRAIN = dict(arch="qwen2_0_5b", batch=4, seq=256, steps=8, lr=1e-3,
+             warmup=2, seed=0, timed=3, profiled=3)
+
+# the training checks at the qwen2_5_3b smoke config (tests/
+# test_substrates.py's cell and bitwise-resume schedule): weights drawn by
+# numpy from `weights_seed` (numpy_params), data seed 7; TRAIN_SMOKE_LOSS
+# is the reference's step-1 loss on them, recomputed by
+# tests/test_torch_trainer.py
+TRAIN_SMOKE = dict(arch="qwen2_5_3b", seq=128, batch=2, data_seed=7,
+                   weights_seed=11, init_seed=3, total=12, ckpt_every=5,
+                   fail_at=8, lr=1e-3, warmup=2, schedule=30)
+TRAIN_SMOKE_LOSS = 5.962843894958496
 
 # steps of the pre-pass's pointer walk (traverse.probe_batch.steps) over
 # the port's fig3a run, load + settle + mix: the lanes the hybrid_search
@@ -1513,7 +1573,7 @@ def phase_paged_kernel(serve_lens) -> dict:
     return rec
 
 
-def _run_fig3a(timer):
+def _run_fig3a(timer, read_pct: int = 50):
     import numpy as np
     import torch
     from repro_torch.api import LocalBackend
@@ -1524,7 +1584,9 @@ def _run_fig3a(timer):
     from repro_torch.kernels import ops as K
 
     load_kinds, load_keys = load_phase(2000, 8000, seed=1)
-    kinds, keys = mixed_phase(4000, 8000, 0.5, seed=2)
+    kinds, keys = mixed_phase(4000, 8000, read_pct / 100, seed=2)
+    expected = FIG3A_EXPECTED if read_pct == 50 else FIG3A_R10_EXPECTED
+    what = f"fig3a r{read_pct}"
     backend = LocalBackend(bench_cfg(), device="cuda", timer=timer)
     bal = Balancer(backend)
     K.hybrid_search.launches = 0
@@ -1549,20 +1611,20 @@ def _run_fig3a(timer):
     oracle.apply_batch(kinds.tolist(), keys.tolist())
     got = backend.all_keys()
     check(got == sorted(oracle.snapshot()),
-          "fig3a: final key set differs from the sequential oracle")
+          f"{what}: final key set differs from the sequential oracle")
     st = backend.stats
     counts = dict(rounds=st["rounds"], load_rounds=load_rounds,
                   settle_rounds=settle_rounds, fast_hits=st["fast_hits"],
                   mut_hits=st["mut_hits"], blk_hits=st["blk_hits"],
                   sublists=sum(1 for e in backend.sublists(0)
                                if e["owner"] == 0), keys=len(got))
-    check(counts == FIG3A_EXPECTED,
-          f"fig3a: counts {counts} != reference {FIG3A_EXPECTED}")
+    check(counts == expected,
+          f"{what}: counts {counts} != reference {expected}")
     check(launches > 0 and counts["blk_hits"] > 0,
-          f"fig3a: hybrid_search launched {launches} times, blk_hits "
+          f"{what}: hybrid_search launched {launches} times, blk_hits "
           f"{counts['blk_hits']}: the main path did not reach the kernel")
-    check(walk_steps == FIG3A_WALK_STEPS < 10559,
-          f"fig3a: the pointer walk took {walk_steps} steps, not the "
+    check(read_pct != 50 or walk_steps == FIG3A_WALK_STEPS < 10559,
+          f"{what}: the pointer walk took {walk_steps} steps, not the "
           f"CPU's {FIG3A_WALK_STEPS}")
     mix_rounds = st["rounds"] - settle_rounds
     return dict(ops_per_s=len(kinds) / dt, seconds=dt,
@@ -1633,6 +1695,105 @@ def phase_fig3a() -> dict:
         f"{1e3 * timed['seconds'] / timed['mix_rounds']:.3f} ms; "
         f"probe_batch {per_step}")
     return dict(plain=plain, timed=timed, breakdown=bd, profile=prof)
+
+
+def skiplist_digest(load_res, mix_res, sl) -> str:
+    """SHA-256 over a skip-list run's results (load, then mix) and every
+    field of its final ``SkipList`` (either package's), each leaf's
+    shape, dtype and bytes."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for leaf in (load_res, mix_res, *sl):
+        if hasattr(leaf, "detach"):
+            leaf = leaf.detach().cpu().numpy()
+        arr = np.array(leaf, order="C")
+        h.update(f"{arr.shape}{arr.dtype}".encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def skiplist_run(read_pct: int, device="cuda") -> dict:
+    """``benchmarks/run.py::fig3a``'s skip-list row: ``SKIP``'s list, the
+    load in one ``apply_batch``, the r``read_pct`` mix in batches, timed
+    from the first batch to the last with a device sync. Every result and
+    the level-0 chain must equal the sequential oracle's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import skiplist as SL
+    from repro_torch.core.oracle import OracleList
+    from repro_torch.data.ycsb import load_phase, mixed_phase
+
+    load_kinds, load_keys = load_phase(2000, 8000, seed=1)
+    kinds, keys = mixed_phase(4000, 8000, read_pct / 100, seed=2)
+    levels, bs = SKIP["levels"], SKIP["batch"]
+    sl = SL.init(SKIP["capacity"], levels, device=device)
+    sl, r_load = SL.apply_batch(sl, load_kinds, load_keys, levels)
+    _sync(device)
+    t0 = time.perf_counter()
+    res = []
+    for i in range(0, len(kinds), bs):
+        sl, r = SL.apply_batch(sl, kinds[i:i + bs], keys[i:i + bs], levels)
+        res.append(r)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    res = torch.cat(res)
+
+    what = f"skiplist r{read_pct}"
+    oracle = OracleList()
+    check(r_load.cpu().bool().tolist()
+          == oracle.apply_batch(load_kinds.tolist(), load_keys.tolist()),
+          f"{what}: a load result differs from the sequential oracle's")
+    check(res.cpu().bool().tolist()
+          == oracle.apply_batch(kinds.tolist(), keys.tolist()),
+          f"{what}: a mix result differs from the sequential oracle's")
+    nxt, key = sl.nxt[0].cpu().numpy(), sl.key.cpu().numpy()
+    chain, node = [], int(nxt[SL.HEAD])
+    while node != SL.NIL and len(chain) <= len(key):
+        chain.append(int(key[node]))
+        node = int(nxt[node])
+    check(chain == sorted(oracle.snapshot()),
+          f"{what}: the level-0 chain differs from the oracle's key set")
+    return dict(ops_per_s=len(kinds) / dt, seconds=dt, sl=sl,
+                keys=len(chain),
+                digest=skiplist_digest(r_load, res, sl))
+
+
+def phase_fig3a_skip(f3: dict) -> dict:
+    """fig3a's DiLi-against-skip-list rows: the skip list at r10, r50 and
+    r90 against ``SKIPLIST_EXPECTED`` and the oracle, DiLi with the block
+    probe at r10 against ``FIG3A_R10_EXPECTED``; DiLi's r50 side is
+    ``[fig3a]``'s run."""
+    dili10 = _run_fig3a(None, read_pct=10)
+    for k in ("backend", "kinds", "keys"):
+        dili10.pop(k)
+    log(f"[fig3a_skip] DiLi r10 block probe: {dili10['ops_per_s']:.1f} "
+        f"ops/s over the mix ({dili10['mix_rounds']} rounds, "
+        f"{dili10['seconds']:.3f} s); counts equal the reference: "
+        f"{dili10['counts']}; hybrid_search launches {dili10['launches']}, "
+        f"walk steps {dili10['walk_steps']}")
+    skip = {}
+    for p in (10, 50, 90):
+        r = skip[p] = skiplist_run(p)
+        check(r["digest"] == SKIPLIST_EXPECTED[p],
+              f"skiplist r{p}: digest {r['digest']} != reference "
+              f"{SKIPLIST_EXPECTED[p]}")
+        check(all(t.device.type == "cuda" for t in r.pop("sl")),
+              f"skiplist r{p}: the state is not on the card")
+        log(f"[fig3a_skip] skiplist_r{p}_ops_per_s {r['ops_per_s']:.1f} "
+            f"({r['seconds']:.3f} s for 4000 ops, {r['keys']} keys); "
+            f"results, chain and state digest equal the reference's")
+    ratios = {10: dili10["ops_per_s"] / skip[10]["ops_per_s"],
+              50: f3["plain"]["ops_per_s"] / skip[50]["ops_per_s"]}
+    for p, v in ratios.items():
+        log(f"[fig3a_skip] dili_over_skip_r{p} {v:.4f}")
+    return dict(dili_r10=dili10, skip=skip, dili_over_skip=ratios)
 
 
 def phase_client() -> None:
@@ -2471,6 +2632,237 @@ def _kernel_vs_gather(eng, steps: int = 4) -> float:
     return worst
 
 
+def numpy_params(cfg, seed: int) -> dict:
+    """A dense model's weights in the reference's parameter tree (layers
+    stacked), drawn by numpy from ``seed``: each matrix Normal(0,
+    1/fan_in), the embedding Normal(0, 1/d_model), norm scales 1 + 0.1
+    Normal, biases 0.02 Normal — one set of weights for both packages."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+
+    def w(*shape, scale=None):
+        scale = shape[-2] ** -0.5 if scale is None else scale
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def norm(*shape):
+        return (1 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    attn = {"wq": w(n, d, q), "wk": w(n, d, kv), "wv": w(n, d, kv),
+            "wo": w(n, q, d)}
+    if cfg.qkv_bias:
+        attn |= {"bq": w(n, q, scale=0.02), "bk": w(n, kv, scale=0.02),
+                 "bv": w(n, kv, scale=0.02)}
+    tree = {"embed": w(cfg.vocab, d, scale=d ** -0.5),
+            "blocks": {"ln1": norm(n, d), "attn": attn, "ln2": norm(n, d),
+                       "mlp": {"w_gate": w(n, d, f), "w_up": w(n, d, f),
+                               "w_down": w(n, f, d)}},
+            "final_norm": norm(d)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = w(d, cfg.vocab)
+    return tree
+
+
+def train_smoke_trainer(ckpt_dir: str, device="cuda", fail_at=None,
+                        steps=None):
+    """``tests/test_substrates.py``'s trainer at ``TRAIN_SMOKE``: the
+    qwen2_5_3b smoke config, its cell, data seed and schedule, a
+    checkpoint every ``ckpt_every`` steps into ``ckpt_dir``, and a
+    ``SimulatedFailure`` after step ``fail_at``; ``steps`` in place of its
+    12."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import (SimulatedFailure, Trainer,
+                                           TrainerConfig)
+    c = TRAIN_SMOKE
+    cfg = get_smoke_config(c["arch"])
+    cell = ShapeCell("smoke_train", "train", c["seq"], c["batch"])
+
+    def mk(step):
+        return make_train_batch(cfg, cell, seed=c["data_seed"], step=step,
+                                dtype=torch.float32, device=device)
+
+    def hook(step):
+        if step == fail_at:
+            raise SimulatedFailure(f"injected at {step}")
+
+    return Trainer(cfg, cell, AdamWConfig(lr=c["lr"], warmup_steps=c["warmup"],
+                                          total_steps=c["schedule"]),
+                   TrainerConfig(total_steps=steps or c["total"],
+                                 ckpt_every=c["ckpt_every"],
+                                 ckpt_dir=ckpt_dir, log_every=100),
+                   make_batch=mk, failure_hook=hook, seed=c["init_seed"],
+                   device=device)
+
+
+def bitwise_resume(root: str, device="cuda") -> dict:
+    """Kill a run after step ``fail_at`` (after the step-5 checkpoint),
+    restart it from the checkpoint, and hold its final weights bit for bit
+    against an uninterrupted run's."""
+    import os
+    import torch
+    from repro_torch.runtime.train import SimulatedFailure
+
+    ref = train_smoke_trainer(os.path.join(root, "ref"), device)
+    ref.run()
+    ft = os.path.join(root, "ft")
+    tr = train_smoke_trainer(ft, device, fail_at=TRAIN_SMOKE["fail_at"])
+    check(not tr.maybe_resume(), "bitwise resume: a fresh run resumed")
+    try:
+        tr.run()
+        fail("bitwise resume: the injected failure did not fire")
+    except SimulatedFailure:
+        tr.mgr.wait()
+    tr = train_smoke_trainer(ft, device)
+    check(tr.maybe_resume() and tr.start_step == TRAIN_SMOKE["ckpt_every"],
+          f"bitwise resume: resumed at {tr.start_step}, not at the step-"
+          f"{TRAIN_SMOKE['ckpt_every']} checkpoint")
+    tr.run()
+    a, b = dict(ref.params.named_parameters()), \
+        dict(tr.params.named_parameters())
+    differ = [n for n in a if not torch.equal(a[n], b[n])]
+    check(not differ, f"bitwise resume: {len(differ)} tensors differ from "
+          f"the uninterrupted run's, first {differ[:3]}")
+    return dict(tensors=len(a), resumed_at=TRAIN_SMOKE["ckpt_every"])
+
+
+def train_smoke_loss(device="cuda") -> float:
+    """Step 1's loss through the port's Trainer at ``TRAIN_SMOKE``, with
+    ``numpy_params`` weights: the reference's is ``TRAIN_SMOKE_LOSS``."""
+    import tempfile
+    from repro_torch import convert
+    from repro_torch.optim import adamw_init
+    with tempfile.TemporaryDirectory() as d:
+        tr = train_smoke_trainer(d, device, steps=1)
+        tr.params = convert.params_from_numpy(
+            numpy_params(tr.cfg, TRAIN_SMOKE["weights_seed"]), tr.cfg,
+            device=device)
+        tr.opt_state = adamw_init(tr.params)
+        return tr.run()["metrics"][0]["loss"]
+
+
+def phase_train() -> dict:
+    """Qwen2-0.5B at full width, f32, random weights from a fixed seed,
+    through the port's ``Trainer``: ``TRAIN["steps"]`` steps on one
+    synthetic batch (the loss finite, in the reference smoke test's band
+    at step 1, lower at the last step), then a timed window and a
+    profiler window; then, at the qwen2_5_3b smoke config, the bitwise
+    resume and the step-1 loss against the reference's."""
+    import math
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.kernels import ops as K
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import Trainer, TrainerConfig
+
+    # full f32 GEMMs, as the reference's CPU numbers are
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = TRAIN
+    cfg = get_config(c["arch"])
+    cell = ShapeCell("cli", "train", c["seq"], c["batch"])
+    batch = make_train_batch(cfg, cell, seed=0, step=0, dtype=torch.float32,
+                             device="cuda")
+    tokens = c["batch"] * c["seq"]
+    K.hybrid_search.launches = 0
+    K.paged_attention.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(cfg, cell, AdamWConfig(lr=c["lr"],
+                                            warmup_steps=c["warmup"],
+                                            total_steps=c["steps"]),
+                     TrainerConfig(total_steps=c["steps"],
+                                   ckpt_every=c["steps"] + 1, ckpt_dir=d,
+                                   log_every=1),
+                     make_batch=lambda step: batch, seed=c["seed"],
+                     device="cuda")
+        n_params = sum(p.numel() for p in tr.params.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [m["loss"] for m in out["metrics"]]
+        check(len(losses) == c["steps"] and all(map(math.isfinite, losses)),
+              f"train: losses {losses}")
+        lo, hi = 0.1 * math.log(cfg.vocab), 3 * math.log(cfg.vocab) + 2
+        check(lo < losses[0] < hi,
+              f"train: step-1 loss {losses[0]:.4f} outside ({lo:.2f}, "
+              f"{hi:.2f})")
+        check(losses[-1] < losses[0],
+              f"train: the loss did not fall: {losses}")
+
+        # timed window: the train step alone, host clock with a sync
+        step_ms = []
+        for _ in range(c["timed"]):
+            t1 = time.perf_counter()
+            tr.step_fn(tr.params, tr.opt_state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+        peak = torch.cuda.max_memory_allocated()
+        # device activity only: host-side tracing of ~12,000 launches a
+        # step would stretch the window's wall time
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(c["profiled"]):
+                tr.step_fn(tr.params, tr.opt_state, batch)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t1
+    check(K.hybrid_search.launches == 0 and K.paged_attention.launches == 0,
+          "train: the training path launched a DiLi or serving kernel")
+    ev = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    check(busy > 0, "train: the profiler saw no device time")
+    top = sorted(ev, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:5]
+    ms = statistics.median(step_ms)
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {n_params / 1e6:.1f} M f32 weights, remat "
+        f"{cfg.remat}; batch {c['batch']} x seq {c['seq']}; losses over "
+        f"{c['steps']} steps {[round(x, 4) for x in losses]} "
+        f"({wall:.2f} s with the first step's warm-up)")
+    log(f"[train] step {ms:.2f} ms median ({min(step_ms):.2f}-"
+        f"{max(step_ms):.2f}), {tokens / ms * 1e3:.1f} tokens/s; peak "
+        f"memory {peak / 2**30:.2f} GiB (max_memory_allocated); profiler "
+        f"window of {c['profiled']} steps: wall {pwall * 1e3:.1f} ms, "
+        f"device busy {busy * 1e3:.1f} ms ({100 * busy / pwall:.2f}%), "
+        f"{sum(e.count for e in ev) / c['profiled']:.0f} device launches "
+        f"per step; top: " + "; ".join(
+            f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.1f} "
+            f"ms" for e in top))
+
+    try:
+        # atomics-free backward kernels where torch has them; cuBLAS's
+        # workspace is pinned in main() before the first GEMM
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with tempfile.TemporaryDirectory() as d:
+            res = bitwise_resume(d)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loss = train_smoke_loss()
+    check(math.isclose(loss, TRAIN_SMOKE_LOSS, rel_tol=1e-4),
+          f"train: step-1 loss {loss!r} at the smoke config != the "
+          f"reference's {TRAIN_SMOKE_LOSS!r} (rtol 1e-4)")
+    log(f"[train] {TRAIN_SMOKE['arch']} smoke config: killed after step "
+        f"{TRAIN_SMOKE['fail_at']}, resumed at step {res['resumed_at']}: "
+        f"all {res['tensors']} weight tensors equal the uninterrupted "
+        f"run's bit for bit; step-1 loss {loss!r} against the reference's "
+        f"{TRAIN_SMOKE_LOSS!r} (rel {abs(loss / TRAIN_SMOKE_LOSS - 1):.2e})")
+    return dict(losses=losses, ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
+                peak_bytes=peak, busy_share=busy / pwall,
+                launches=dict(
+                    hybrid_search=K.hybrid_search.launches,
+                    paged_attention=K.paged_attention.launches))
+
+
 def phase_serving() -> dict:
     """Qwen2-0.5B at full width, f32, random weights from a fixed seed,
     through ``ServingEngine(use_kernel=True, dili_shards=2)`` in the three
@@ -2589,6 +2981,9 @@ def phase_serving() -> dict:
 # ------------------------------------------------------------------- main
 
 def main() -> None:
+    # a fixed cuBLAS workspace, before the first GEMM: [train]'s bitwise
+    # resume runs under torch.use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device: the port's smoke runs on a GPU")
@@ -2604,6 +2999,9 @@ def main() -> None:
                   serve_requests(get_config("qwen2_0_5b").vocab)]
     prec = phase_paged_kernel(serve_lens)
     f3 = phase_fig3a()
+    t_phase = time.perf_counter()
+    f3s = phase_fig3a_skip(f3)
+    log(f"[fig3a_skip] the phase in {time.perf_counter() - t_phase:.1f} s")
     phase_client()
     reb = phase_rebalance()
     f3b = phase_fig3b4()
@@ -2624,6 +3022,9 @@ def main() -> None:
     log(f"[replication] the two replication phases in "
         f"{time.perf_counter() - t_rep:.1f} s")
     serving = phase_serving()
+    t_phase = time.perf_counter()
+    train = phase_train()
+    log(f"[train] the phase in {time.perf_counter() - t_phase:.1f} s")
     scale = phase_scale(SCALE_KEYS, SCALE_TIMED_ROUNDS)
     scale4 = phase_scale4(SCALE4_KEYS)
 
@@ -2634,6 +3035,8 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/hybrid_search.cu",
         replaces="src/repro/kernels/hybrid_search.py:58",
         launches=f3["plain"]["launches"], max_abs_err=k["max_abs_err"],
+        launches_fig3a_r10=f3s["dili_r10"]["launches"],
+        launches_train=train["launches"]["hybrid_search"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None,
         shape=k["shape"], call_ms=k["call_ms"],
@@ -2672,6 +3075,7 @@ def main() -> None:
                                for r in serving["runs"].values()),
         serving_dili_shards=2,
         serving_moves={m: r["moves"] for m, r in serving["runs"].items()},
+        launches_train=train["launches"]["paged_attention"],
         ms_by_shape={n: r["ms"] for n, r in prec.items()})]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2697,6 +3101,14 @@ def main() -> None:
         f"{zipf['runs']['on']['breakdown'].get('replica_step', 0.0):.3f} "
         f"ms/round; replica_nemesis {rnem['rounds']} rounds, rep_hits "
         f"{rnem['rep_hits']}")
+    log(f"[fig3a_skip] skiplist ops/s " + ", ".join(
+        f"r{p} {r['ops_per_s']:.1f}" for p, r in f3s["skip"].items())
+        + "; dili_over_skip " + ", ".join(
+            f"r{p} {v:.4f}" for p, v in f3s["dili_over_skip"].items()))
+    log(f"[train] {train['ms_per_step']:.2f} ms per step, "
+        f"{train['tokens_per_s']:.1f} tokens/s, peak "
+        f"{train['peak_bytes'] / 2**30:.2f} GiB, busy "
+        f"{100 * train['busy_share']:.2f}%")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi[0], flush=True)

@@ -1,2 +1,3 @@
 """Checkpoint files in the reference's ``.npz`` layout (``ckpt``)."""
-from .ckpt import CheckpointManager, flatten, restore_pytree  # noqa: F401
+from .ckpt import (CheckpointManager, flatten, restore_pytree,  # noqa: F401
+                   save_pytree)

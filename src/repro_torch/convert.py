@@ -3,7 +3,17 @@
 ``params_from_numpy`` builds the port's ``DenseLM`` from the reference's
 parameter tree (``models.transformer.init_params``) as numpy arrays, with
 its layer-stacked ``blocks``, so both packages compute with the same
-weights.
+weights; ``params_to_numpy`` is the way back. The optimizer state goes
+both ways too (``opt_state_to_numpy`` / ``opt_state_from_numpy``: the
+reference's ``{"mu", "nu", "step"}`` with ``mu`` and ``nu`` shaped as the
+parameter tree), so a training checkpoint (``{"params", "opt"}``) written
+by either package restores in the other; ``template_tree`` /
+``opt_state_template`` give such a restore its structure without copying
+off the device, and ``load_params_`` / ``load_opt_state_`` copy the
+restored tree into a live model and state in place. A port parameter
+``blocks.<i>.<path>`` is layer ``i`` of the reference's stacked
+``blocks/<path>``; every other name is the reference's path with ``.``
+for ``/``.
 
 The DiLi protocol's counterpart of carrying weights across is a shard's
 state. ``*_to_numpy`` turns a state — the port's tensors, or the
@@ -22,6 +32,7 @@ import torch
 from .core.bg.fsm import BgState
 from .models.config import ArchConfig
 from .models.transformer import DenseLM
+from .optim import adamw_init
 from .core.types import (Blocks, Pool, Registry, ReplicaSlots, RepSessions,
                          ShardState, resolve_device)
 
@@ -73,7 +84,105 @@ def bg_table_from_numpy(d: dict, device="cuda") -> BgState:
     return _build(BgState, d, resolve_device(device))
 
 
+def _ref_path(name: str):
+    """(reference path, layer or None) of a port parameter name."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return ["blocks"] + parts[2:], int(parts[1])
+    return parts, None
+
+
+def _get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set_path(tree, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def named_to_tree(named: dict) -> dict:
+    """The reference's nested parameter tree, numpy, layers stacked, from
+    ``{port name: tensor or array}`` (in layer order, as
+    ``named_parameters`` yields them)."""
+    tree, stacks = {}, {}
+    for name, x in named.items():
+        arr = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+        path, layer = _ref_path(name)
+        if layer is None:
+            _set_path(tree, path, arr.copy())
+        else:
+            stacks.setdefault(tuple(path), []).append(arr)
+    for path, arrs in stacks.items():
+        _set_path(tree, path, np.stack(arrs))
+    return tree
+
+
+def tree_to_named(tree: dict, names) -> dict:
+    """``{port name: numpy array}`` for ``names`` from the reference's
+    nested parameter tree (the inverse of ``named_to_tree``)."""
+    out = {}
+    for name in names:
+        path, layer = _ref_path(name)
+        arr = np.asarray(_get_path(tree, path))
+        out[name] = arr if layer is None else arr[layer]
+    return out
+
+
+def params_to_numpy(model: DenseLM) -> dict:
+    """The reference's parameter tree (numpy) holding ``model``'s
+    weights."""
+    return named_to_tree(dict(model.named_parameters()))
+
+
+def _host_dtype(t: torch.Tensor) -> np.dtype:
+    # a checkpoint holds bfloat16 leaves as float32 (``checkpoint._host``)
+    if t.dtype == torch.bfloat16:
+        return np.dtype(np.float32)
+    return torch.empty((), dtype=t.dtype).numpy().dtype
+
+
+def template_tree(named: dict) -> dict:
+    """``named_to_tree``'s structure, shapes and dtypes for
+    ``{port name: tensor}``, with leaves that hold one element each
+    (zero-stride views): a restore template that copies nothing off the
+    device."""
+    tree, stacks = {}, {}
+    for name, t in named.items():
+        path, layer = _ref_path(name)
+        leaf = (tuple(t.shape), _host_dtype(t))
+        if layer is None:
+            _set_path(tree, path, np.broadcast_to(np.zeros((), leaf[1]),
+                                                  leaf[0]))
+        else:
+            stacks.setdefault(tuple(path), [0, leaf])[0] += 1
+    for path, (n, (shape, dt)) in stacks.items():
+        _set_path(tree, list(path), np.broadcast_to(np.zeros((), dt),
+                                                    (n, *shape)))
+    return tree
+
+
 @torch.no_grad()
+def _load_named_(named: dict, tree: dict, what: str) -> None:
+    for name, arr in tree_to_named(tree, named).items():
+        dst = named[name]
+        if tuple(arr.shape) != tuple(dst.shape):
+            raise ValueError(f"{what}: {name} shape {arr.shape} "
+                             f"vs {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(arr, order="C")))
+
+
+def load_params_(model: DenseLM, tree: dict) -> DenseLM:
+    """Copy the reference's parameter tree (numpy) into ``model``'s
+    weights in place."""
+    _load_named_(dict(model.named_parameters()), tree, "load_params_")
+    return model
+
+
 def params_from_numpy(tree: dict, cfg: ArchConfig, *, dtype=None,
                       device="cuda") -> DenseLM:
     """A port ``DenseLM`` on ``device`` from the reference's parameter tree
@@ -84,25 +193,34 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, *, dtype=None,
     if dtype is None:
         dtype = torch.from_numpy(
             np.zeros((0,), np.asarray(tree["embed"]).dtype)).dtype
-    model = DenseLM(cfg, dtype=dtype, device=device)
+    return load_params_(DenseLM(cfg, dtype=dtype, device=device), tree)
 
-    def put(param, arr):
-        arr = np.asarray(arr)
-        if tuple(arr.shape) != tuple(param.shape):
-            raise ValueError(f"params_from_numpy: shape {arr.shape} vs "
-                             f"{tuple(param.shape)}")
-        param.copy_(torch.from_numpy(np.array(arr, order="C")))
 
-    put(model.embed, tree["embed"])
-    put(model.final_norm, tree["final_norm"])
-    if not cfg.tie_embeddings:
-        put(model.lm_head, tree["lm_head"])
-    stacked = tree["blocks"]
-    for i, blk in enumerate(model.blocks):
-        put(blk.ln1, stacked["ln1"][i])
-        put(blk.ln2, stacked["ln2"][i])
-        for name, _ in blk.attn.named_parameters():
-            put(getattr(blk.attn, name), stacked["attn"][name][i])
-        for name, _ in blk.mlp.named_parameters():
-            put(getattr(blk.mlp, name), stacked["mlp"][name][i])
-    return model
+def opt_state_to_numpy(state: dict) -> dict:
+    """The reference's AdamW state tree (numpy) from the port's
+    (``optim.adamw_init``)."""
+    return {"mu": named_to_tree(state["mu"]),
+            "nu": named_to_tree(state["nu"]),
+            "step": state["step"].detach().cpu().numpy().astype(np.int32)}
+
+
+def opt_state_template(state: dict) -> dict:
+    """``opt_state_to_numpy``'s structure with ``template_tree`` leaves."""
+    return {"mu": template_tree(state["mu"]),
+            "nu": template_tree(state["nu"]),
+            "step": np.zeros((), np.int32)}
+
+
+def load_opt_state_(state: dict, tree: dict) -> dict:
+    """Copy the reference's AdamW state tree into the port's ``state``
+    (``optim.adamw_init``) in place."""
+    for k in ("mu", "nu"):
+        _load_named_(state[k], tree[k], "load_opt_state_")
+    state["step"].fill_(int(np.asarray(tree["step"])))
+    return state
+
+
+def opt_state_from_numpy(tree: dict, model: DenseLM) -> dict:
+    """The port's AdamW state for ``model`` (on its device) from the
+    reference's state tree."""
+    return load_opt_state_(adamw_init(model), tree)

@@ -52,7 +52,8 @@ class ShardSnapshots:
     def __init__(self, directory: str, shard: int, *, keep: int = 2):
         self.shard = int(shard)
         self.mgr = CheckpointManager(
-            os.path.join(directory, f"shard_{self.shard:02d}"), keep=keep)
+            os.path.join(directory, f"shard_{self.shard:02d}"), keep=keep,
+            async_write=False)
 
     def latest_round(self) -> Optional[int]:
         step = self.mgr.latest_step()

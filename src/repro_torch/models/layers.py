@@ -1,5 +1,5 @@
 """Shared neural building blocks, as functions over tensors (the
-reference's ``models/layers.py``). ``cross_entropy`` comes with training."""
+reference's ``models/layers.py``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -47,3 +47,15 @@ def init_dense(shape, *, generator: torch.Generator, scale=None,
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (x * scale).to(dtype)
+
+
+def cross_entropy(logits, targets, *, z_loss: float = 1e-4):
+    """Token CE with optional z-loss; logits [..., V] (taken in f32),
+    targets int [...]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss

@@ -1,4 +1,4 @@
-"""Top-level model of the port: the dense family at serving.
+"""Top-level model of the port: the dense family, training and serving.
 
     dense : [RMSNorm -> GQA attn] + [RMSNorm -> SwiGLU], per layer
 
@@ -7,22 +7,27 @@ A model is a ``DenseLM`` module: ``embed``, ``blocks`` (an
 ``final_norm`` and, without tied embeddings, ``lm_head``. Weights keep the
 reference's layout (``x @ w``, w is [in, out]), so ``convert.py`` carries
 the reference's parameter tree across unchanged. The layers run one after
-another in Python; the reference's ``lax.scan`` over stacked layers and its
-rematerialization are compile-time devices PyTorch has no need for, and its
+another in Python (the reference's ``lax.scan`` over stacked layers is a
+compile-time device PyTorch has no need for), and the reference's
 ``runtime.actctx.constrain`` sharding hint is the identity on one card.
+``forward_train`` keeps ``cfg.remat``: each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), so the backward pass
+recomputes the layer instead of holding its activations.
 
-The families ``moe``, ``ssm`` and ``hybrid``, the non-text modalities and
-``forward_train`` come with later slices of the port and raise.
+The families ``moe``, ``ssm`` and ``hybrid`` and the non-text modalities
+come with later slices of the port and raise.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.types import resolve_device
 from .attention import attention_block
 from .config import ArchConfig
-from .layers import init_dense, rms_norm, swiglu
+from .layers import cross_entropy, init_dense, rms_norm, swiglu
 
 LATER = "a later slice of the port (ROADMAP Queue 1 item 14)"
 
@@ -172,5 +177,54 @@ def forward_serve(params: DenseLM, cfg: ArchConfig, batch, cache,
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
-def forward_train(params, cfg: ArchConfig, batch):
-    raise NotImplementedError(f"forward_train comes with {LATER}")
+def _embed_input(params: DenseLM, cfg: ArchConfig, batch):
+    """Returns (h [B,S,D], targets [B,S], loss_mask [B,S]) — the text
+    branch. ``F.embedding`` rather than indexing: its backward on CUDA
+    sums the rows of repeated tokens in a fixed order."""
+    h = F.embedding(batch["tokens"], params.embed)
+    tgt = batch["targets"]
+    return h, tgt, torch.ones(tgt.shape, dtype=torch.bool, device=h.device)
+
+
+def _backbone_train(params: DenseLM, cfg: ArchConfig, h, positions):
+    """Run all blocks (training path, no caches)."""
+    for blk in params.blocks:
+        if cfg.remat:
+            h = checkpoint(lambda x, b=blk: b(x, cfg, positions)[0], h,
+                           use_reentrant=False)
+        else:
+            h = blk(h, cfg, positions)[0]
+    return h
+
+
+def _chunked_loss(params: DenseLM, cfg: ArchConfig, h, targets, mask):
+    """CE computed over sequence chunks to bound the [.., V] logit tile."""
+    s = h.shape[1]
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of loss_chunk {c}")
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // c):
+        sl = slice(i * c, (i + 1) * c)
+        ls = cross_entropy(h[:, sl] @ params.head(cfg), targets[:, sl])
+        ms = mask[:, sl].float()
+        tot = tot + (ls * ms).sum()
+        cnt = cnt + ms.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def forward_train(params: DenseLM, cfg: ArchConfig, batch):
+    """Training forward: returns (loss, metrics). ``batch`` holds int
+    ``tokens`` and ``targets`` [B, S]; gradients flow to every parameter
+    that requires them."""
+    check_supported(cfg)
+    h, targets, mask = _embed_input(params, cfg, batch)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    h = _backbone_train(params, cfg, h, positions)
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    loss = _chunked_loss(params, cfg, h, targets, mask)
+    # the dense family has no MoE auxiliary losses; the keys stay the
+    # reference's
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    return loss, {"ce_loss": loss, "moe_aux": zero, "moe_z": zero}

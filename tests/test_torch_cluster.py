@@ -277,13 +277,11 @@ def test_c4_entry_points_default_to_cuda():
 
 
 def test_c4_work_outside_the_slice_raises():
-    # forward_train, the int8 KV cache and the non-dense families
-    # (item 14): each raises rather than running something else
+    # the int8 KV cache and the non-dense families (item 14), at serving
+    # and in forward_train: each raises rather than running something else
     from repro_torch.configs import ARCH_IDS, get_smoke_config
     from repro_torch.models import transformer as TR
     dense = get_smoke_config("qwen2_0_5b")
-    with pytest.raises(NotImplementedError, match="forward_train"):
-        TR.forward_train(None, dense, None)
     with pytest.raises(NotImplementedError, match="int8"):
         TR.check_supported(dense.replace(kv_quant=True))
     others = [n for n in ARCH_IDS if get_smoke_config(n).family != "dense"
@@ -292,6 +290,8 @@ def test_c4_work_outside_the_slice_raises():
     for name in others:
         with pytest.raises(NotImplementedError, match="family"):
             TR.check_supported(get_smoke_config(name))
+        with pytest.raises(NotImplementedError, match="family"):
+            TR.forward_train(None, get_smoke_config(name), None)
 
 
 def _fault_run(pkg, case, tmp):

@@ -1,7 +1,9 @@
 """The chip smoke's fig3a counts, reproduced on the CPU.
 
 ``chip_smoke.py`` holds the port's fig3a r50 run on the card against
-``FIG3A_EXPECTED``: rounds, fast/mut/blk hits, sublists and keys. This test
+``FIG3A_EXPECTED`` and its r10 run (the write-intensive mix, the DiLi side
+of ``dili_over_skip_r10``) against ``FIG3A_R10_EXPECTED``: rounds,
+fast/mut/blk hits, sublists and keys. This test
 recomputes those numbers from the reference with ``benchmarks/run.py``'s
 own driver and config (``_bench_cfg(1, block_probe=True)``,
 ``_drive_backend`` with the balancer every 4th round, ``_settle``), and from
@@ -29,9 +31,9 @@ def _load(name, path):
 SMOKE = _load("chip_smoke", "chip_smoke.py")
 
 
-def _fig3a_counts(backend, bal, drive, settle, ycsb):
+def _fig3a_counts(backend, bal, drive, settle, ycsb, read_pct):
     load_kinds, load_keys = ycsb.load_phase(2000, 8000, seed=1)
-    kinds, keys = ycsb.mixed_phase(4000, 8000, 0.5, seed=2)
+    kinds, keys = ycsb.mixed_phase(4000, 8000, read_pct / 100, seed=2)
     drive(backend, load_kinds, load_keys, 64, balancer=bal)
     load_rounds = backend.stats["rounds"]
     settle(backend, bal)
@@ -46,17 +48,17 @@ def _fig3a_counts(backend, bal, drive, settle, ycsb):
                 keys=len(backend.all_keys()))
 
 
-def _reference():
+def _reference(read_pct):
     from repro.api import LocalBackend
     from repro.core.balancer import Balancer
     from repro.data import ycsb
     bench = _load("benchmarks_run", "benchmarks/run.py")
     backend = LocalBackend(bench._bench_cfg(1, block_probe=True))
     return _fig3a_counts(backend, Balancer(backend), bench._drive_backend,
-                         bench._settle, ycsb)
+                         bench._settle, ycsb, read_pct)
 
 
-def _port():
+def _port(read_pct):
     from repro_torch.api import LocalBackend
     from repro_torch.core.balancer import Balancer
     from repro_torch.core.traverse import probe_batch
@@ -64,16 +66,23 @@ def _port():
     backend = LocalBackend(SMOKE.bench_cfg(), device="cpu")
     probe_batch.steps = 0
     counts = _fig3a_counts(backend, Balancer(backend), SMOKE.drive_backend,
-                           SMOKE.settle, ycsb)
+                           SMOKE.settle, ycsb, read_pct)
     # the smoke's walk-step count: lanes the kernel answers skip the walk
-    assert probe_batch.steps == SMOKE.FIG3A_WALK_STEPS
+    if read_pct == 50:
+        assert probe_batch.steps == SMOKE.FIG3A_WALK_STEPS
     return counts
 
 
 @pytest.mark.parametrize("run", [_reference, _port],
                          ids=["reference", "port_cpu"])
 def test_fig3a_counts_equal_smoke_constants(run):
-    assert run() == SMOKE.FIG3A_EXPECTED
+    assert run(50) == SMOKE.FIG3A_EXPECTED
+
+
+@pytest.mark.parametrize("run", [_reference, _port],
+                         ids=["reference", "port_cpu"])
+def test_fig3a_r10_counts_equal_smoke_constants(run):
+    assert run(10) == SMOKE.FIG3A_R10_EXPECTED
 
 
 def test_smoke_config_is_the_benchmarks():
