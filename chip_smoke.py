@@ -135,6 +135,23 @@ which makes the script exit non-zero when it fails:
                ``torch.use_deterministic_algorithms``) and step 1's loss
                on ``numpy_params`` weights against the reference's
                (``TRAIN_SMOKE_LOSS``, rtol 1e-4);
+  7b. families — every other family the reference supports, at its
+               published widths, f32, random weights from a fixed seed
+               (``FAMILIES``): granite-moe-3b-a800m (moe),
+               falcon-mamba-7b (ssm), zamba2-7b (hybrid),
+               llava-next-mistral-7b (vision stub) and musicgen-medium
+               (audio stub). Each serves at full depth (a batch of 2
+               prompts of 128 positions, 4 teacher-forced decode steps,
+               the first within ``tf_rtol`` of a full prefill's logits)
+               and trains at a cut depth through the ``Trainer`` (4 steps
+               of 2 x 256 on one batch: losses finite, the last below the
+               first). Qwen2-0.5B's int8 KV cache (``KV_QUANT``): its
+               bytes (D + 2) / 4D of the f32 cache's, decode logits within
+               5% of the f32 cache's largest. Each family's smoke-config
+               step-1 loss equals the reference's (``FAMILIES_SMOKE_LOSS``,
+               rtol 1e-4), granite's smoke config resumes bit for bit, and
+               neither kernel launches. ms per train step, tokens/s, peak
+               memory, device launches per step, ms per decode step;
   8. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
                entries) with ``SCALE_KEYS`` loaded keys and as many r50
                ops, checked against the oracle; then a window of rounds
@@ -198,13 +215,53 @@ TRAIN = dict(arch="qwen2_0_5b", batch=4, seq=256, steps=8, lr=1e-3,
 
 # the training checks at the qwen2_5_3b smoke config (tests/
 # test_substrates.py's cell and bitwise-resume schedule): weights drawn by
-# numpy from `weights_seed` (numpy_params), data seed 7; TRAIN_SMOKE_LOSS
+# numpy from `weights_seed` (convert.numpy_params), data seed 7;
+# TRAIN_SMOKE_LOSS
 # is the reference's step-1 loss on them, recomputed by
 # tests/test_torch_trainer.py
 TRAIN_SMOKE = dict(arch="qwen2_5_3b", seq=128, batch=2, data_seed=7,
                    weights_seed=11, init_seed=3, total=12, ckpt_every=5,
                    fail_at=8, lr=1e-3, warmup=2, schedule=30)
 TRAIN_SMOKE_LOSS = 5.962843894958496
+
+# the [families] phase: every non-dense family at its published widths,
+# f32, random weights from `seed`. Serving at full depth: a batch of
+# `serve_batch` prompts of `prompt` tokens (vision: half patch
+# embeddings; audio: frame embeddings), then `decode` decode steps fed a
+# fixed continuation (teacher forcing), the first checked against a full
+# prefill of prompt + 1 tokens within `tf_rtol` of its largest logit
+# (MoE at capacity factor n_experts / top_k there, so that neither run
+# drops a token). Training at `train_layers` layers (the depth cut):
+# `train_steps` Trainer steps on one batch of `train_batch` x
+# `train_seq` at `lr`
+FAMILIES = dict(
+    archs={"granite_moe_3b_a800m": 8, "falcon_mamba_7b": 4,
+           "zamba2_7b": 7, "llava_next_mistral_7b": 2,
+           "musicgen_medium": 8},
+    seed=0, serve_batch=2, prompt=128, decode=4, tf_rtol=1e-3,
+    train_batch=2, train_seq=256, train_steps=4, lr=1e-3)
+
+# the int8 KV cache at Qwen2-0.5B's full depth: prefill `prompt`, then
+# `decode` teacher-forced steps with the int8 and the f32 cache; each
+# step's logits within `rel` of the f32 cache's largest logit magnitude
+KV_QUANT = dict(arch="qwen2_0_5b", prompt=128, decode=8, rel=0.05)
+
+# step-1 loss of each family's smoke config on convert.numpy_params
+# weights (seed `weights_seed`) and data seed `data_seed`, as the
+# reference gives it; tests/test_torch_{moe,ssm,hybrid,modalities}.py
+# recompute it. The reference's vision-stub loss is `batch` times the
+# mean over the text tokens (ROADMAP Queue 3 item 7): its constant here
+# is the reference's divided by `batch`, the port's loss
+FAMILIES_SMOKE = dict(seq=128, batch=2, data_seed=7, weights_seed=11)
+FAMILIES_SMOKE_LOSS = {"granite_moe_3b_a800m": 6.028960704803467,
+                       "qwen3_moe_235b_a22b": 6.041755199432373,
+                       "falcon_mamba_7b": 5.886418342590332,
+                       "zamba2_7b": 6.076806545257568,
+                       "llava_next_mistral_7b": 12.327347755432129 / 2,
+                       "musicgen_medium": 4.667186260223389}
+
+# the family whose smoke config repeats [train]'s bitwise resume
+FAMILIES_RESUME = "granite_moe_3b_a800m"
 
 # steps of the pre-pass's pointer walk (traverse.probe_batch.steps) over
 # the port's fig3a run, load + settle + mix: the lanes the hybrid_search
@@ -2632,45 +2689,13 @@ def _kernel_vs_gather(eng, steps: int = 4) -> float:
     return worst
 
 
-def numpy_params(cfg, seed: int) -> dict:
-    """A dense model's weights in the reference's parameter tree (layers
-    stacked), drawn by numpy from ``seed``: each matrix Normal(0,
-    1/fan_in), the embedding Normal(0, 1/d_model), norm scales 1 + 0.1
-    Normal, biases 0.02 Normal — one set of weights for both packages."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-
-    def w(*shape, scale=None):
-        scale = shape[-2] ** -0.5 if scale is None else scale
-        return (rng.standard_normal(shape) * scale).astype(np.float32)
-
-    def norm(*shape):
-        return (1 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
-
-    attn = {"wq": w(n, d, q), "wk": w(n, d, kv), "wv": w(n, d, kv),
-            "wo": w(n, q, d)}
-    if cfg.qkv_bias:
-        attn |= {"bq": w(n, q, scale=0.02), "bk": w(n, kv, scale=0.02),
-                 "bv": w(n, kv, scale=0.02)}
-    tree = {"embed": w(cfg.vocab, d, scale=d ** -0.5),
-            "blocks": {"ln1": norm(n, d), "attn": attn, "ln2": norm(n, d),
-                       "mlp": {"w_gate": w(n, d, f), "w_up": w(n, d, f),
-                               "w_down": w(n, f, d)}},
-            "final_norm": norm(d)}
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = w(d, cfg.vocab)
-    return tree
-
-
 def train_smoke_trainer(ckpt_dir: str, device="cuda", fail_at=None,
-                        steps=None):
+                        steps=None, arch=TRAIN_SMOKE["arch"]):
     """``tests/test_substrates.py``'s trainer at ``TRAIN_SMOKE``: the
-    qwen2_5_3b smoke config, its cell, data seed and schedule, a
-    checkpoint every ``ckpt_every`` steps into ``ckpt_dir``, and a
-    ``SimulatedFailure`` after step ``fail_at``; ``steps`` in place of its
-    12."""
+    qwen2_5_3b smoke config (or ``arch``'s), its cell, data seed and
+    schedule, a checkpoint every ``ckpt_every`` steps into ``ckpt_dir``,
+    and a ``SimulatedFailure`` after step ``fail_at``; ``steps`` in place
+    of its 12."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.synthetic import make_train_batch
@@ -2679,7 +2704,7 @@ def train_smoke_trainer(ckpt_dir: str, device="cuda", fail_at=None,
     from repro_torch.runtime.train import (SimulatedFailure, Trainer,
                                            TrainerConfig)
     c = TRAIN_SMOKE
-    cfg = get_smoke_config(c["arch"])
+    cfg = get_smoke_config(arch)
     cell = ShapeCell("smoke_train", "train", c["seq"], c["batch"])
 
     def mk(step):
@@ -2699,25 +2724,28 @@ def train_smoke_trainer(ckpt_dir: str, device="cuda", fail_at=None,
                    device=device)
 
 
-def bitwise_resume(root: str, device="cuda") -> dict:
-    """Kill a run after step ``fail_at`` (after the step-5 checkpoint),
-    restart it from the checkpoint, and hold its final weights bit for bit
-    against an uninterrupted run's."""
+def bitwise_resume(root: str, device="cuda",
+                   arch=TRAIN_SMOKE["arch"]) -> dict:
+    """Kill a run of ``train_smoke_trainer`` at ``arch``'s smoke config
+    after step ``fail_at`` (after the step-5 checkpoint), restart it from
+    the checkpoint, and hold its final weights bit for bit against an
+    uninterrupted run's."""
     import os
     import torch
     from repro_torch.runtime.train import SimulatedFailure
 
-    ref = train_smoke_trainer(os.path.join(root, "ref"), device)
+    ref = train_smoke_trainer(os.path.join(root, "ref"), device, arch=arch)
     ref.run()
     ft = os.path.join(root, "ft")
-    tr = train_smoke_trainer(ft, device, fail_at=TRAIN_SMOKE["fail_at"])
+    tr = train_smoke_trainer(ft, device, fail_at=TRAIN_SMOKE["fail_at"],
+                             arch=arch)
     check(not tr.maybe_resume(), "bitwise resume: a fresh run resumed")
     try:
         tr.run()
         fail("bitwise resume: the injected failure did not fire")
     except SimulatedFailure:
         tr.mgr.wait()
-    tr = train_smoke_trainer(ft, device)
+    tr = train_smoke_trainer(ft, device, arch=arch)
     check(tr.maybe_resume() and tr.start_step == TRAIN_SMOKE["ckpt_every"],
           f"bitwise resume: resumed at {tr.start_step}, not at the step-"
           f"{TRAIN_SMOKE['ckpt_every']} checkpoint")
@@ -2732,15 +2760,16 @@ def bitwise_resume(root: str, device="cuda") -> dict:
 
 def train_smoke_loss(device="cuda") -> float:
     """Step 1's loss through the port's Trainer at ``TRAIN_SMOKE``, with
-    ``numpy_params`` weights: the reference's is ``TRAIN_SMOKE_LOSS``."""
+    ``convert.numpy_params`` weights: the reference's is
+    ``TRAIN_SMOKE_LOSS``."""
     import tempfile
     from repro_torch import convert
     from repro_torch.optim import adamw_init
     with tempfile.TemporaryDirectory() as d:
         tr = train_smoke_trainer(d, device, steps=1)
         tr.params = convert.params_from_numpy(
-            numpy_params(tr.cfg, TRAIN_SMOKE["weights_seed"]), tr.cfg,
-            device=device)
+            convert.numpy_params(tr.cfg, TRAIN_SMOKE["weights_seed"]),
+            tr.cfg, device=device)
         tr.opt_state = adamw_init(tr.params)
         return tr.run()["metrics"][0]["loss"]
 
@@ -2861,6 +2890,316 @@ def phase_train() -> dict:
                 launches=dict(
                     hybrid_search=K.hybrid_search.launches,
                     paged_attention=K.paged_attention.launches))
+
+
+def families_smoke_loss(arch: str, device="cuda") -> float:
+    """The port's step-1 loss at ``arch``'s smoke config on
+    ``FAMILIES_SMOKE``'s weights and batch: the reference's is
+    ``FAMILIES_SMOKE_LOSS[arch]``."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeCell
+    c = FAMILIES_SMOKE
+    cfg = get_smoke_config(arch)
+    model = convert.params_from_numpy(
+        convert.numpy_params(cfg, c["weights_seed"]), cfg, device=device)
+    batch = make_train_batch(cfg, ShapeCell("smoke_train", "train",
+                                            c["seq"], c["batch"]),
+                             seed=c["data_seed"], step=0,
+                             dtype=torch.float32, device=device)
+    with torch.no_grad():
+        return float(T.forward_train(model, cfg, batch)[0])
+
+
+def _family_inputs(cfg, b: int, prompt: int, n_decode: int, seed: int):
+    """Serving inputs on the card, drawn from ``seed``: the prompt batch
+    (``prompt`` positions; vision: half of them patch embeddings), the
+    inputs of ``n_decode`` decode steps continuing it, and the full
+    prefill of the prompt and the first continuation position."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    n = prompt + n_decode
+    if cfg.modality == "audio_stub":
+        f = torch.randn((b, n, cfg.d_model), generator=g, device="cuda")
+        return dict(prompt={"frame_embeds": f[:, :prompt]},
+                    steps=[{"frame_embeds": f[:, prompt + i:prompt + i + 1]}
+                           for i in range(n_decode)],
+                    full={"frame_embeds": f[:, :prompt + 1]})
+    li = prompt // 2 if cfg.modality == "vision_stub" else 0
+    tok = torch.randint(0, cfg.vocab, (b, n - li), generator=g,
+                        device="cuda")
+    lt = prompt - li
+    extra = {}
+    if li:
+        extra["patch_embeds"] = torch.randn((b, li, cfg.d_model),
+                                            generator=g, device="cuda")
+    return dict(prompt={**extra, "tokens": tok[:, :lt]},
+                steps=[{"tokens": tok[:, lt + i:lt + i + 1]}
+                       for i in range(n_decode)],
+                full={**extra, "tokens": tok[:, :lt + 1]})
+
+
+def _serve_run(model, cfg, inp, prompt: int, n_decode: int) -> dict:
+    """Prefill, then the decode steps: host ms (each call ends in a
+    device sync) and every call's logits."""
+    import torch
+    from repro_torch.models import transformer as T
+    b = next(iter(inp["prompt"].values())).shape[0]
+    cache = T.init_cache(cfg, b, prompt + n_decode, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = T.forward_serve(
+        model, cfg, inp["prompt"], cache,
+        torch.zeros((b,), dtype=torch.int32, device="cuda"), decode=False)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    out, step_ms = [logits], []
+    for i, step in enumerate(inp["steps"][:n_decode]):
+        t0 = time.perf_counter()
+        logits, cache = T.forward_serve(
+            model, cfg, step, cache,
+            torch.full((b,), prompt + i, dtype=torch.int32, device="cuda"),
+            decode=True)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        out.append(logits)
+    return dict(prefill_ms=prefill_ms, decode_ms=statistics.median(step_ms),
+                logits=out, cache=cache)
+
+
+def _teacher_forced(model, cfg, inp, prompt: int, first=None) -> float:
+    """max |decode logits of the first continuation position - the full
+    prefill's| over the full prefill's largest |logit|; ``first`` is the
+    decode's logits if already computed with ``cfg``."""
+    import torch
+    from repro_torch.models import transformer as T
+    if first is None:
+        first = _serve_run(model, cfg, inp, prompt, 1)["logits"][1]
+    b = first.shape[0]
+    full, _ = T.forward_serve(
+        model, cfg, inp["full"], T.init_cache(cfg, b, prompt + 1,
+                                              device="cuda"),
+        torch.zeros((b,), dtype=torch.int32, device="cuda"), decode=False)
+    return float((first - full).abs().max() / full.abs().max())
+
+
+def _train_family(arch: str, layers: int) -> dict:
+    """``FAMILIES["train_steps"]`` steps of the port's ``Trainer`` at
+    ``arch``'s published widths and ``layers`` layers, on one batch: the
+    losses, host ms per step (steps 2 on; each timed from the start of
+    one step's batch to the next's, after a device sync), peak memory,
+    and the last step under the CUDA profiler (device launches, busy
+    share)."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import Trainer, TrainerConfig
+    c = FAMILIES
+    cfg = get_config(arch).replace(n_layers=layers)
+    cell = ShapeCell("families", "train", c["train_seq"], c["train_batch"])
+    batch = make_train_batch(cfg, cell, seed=c["seed"], step=0,
+                             dtype=torch.float32, device="cuda")
+    n = c["train_steps"]
+    stamps = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def mk(step):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if step == n - 1:
+            prof.start()
+        return batch
+
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(cfg, cell, AdamWConfig(lr=c["lr"], warmup_steps=1,
+                                            total_steps=n),
+                     TrainerConfig(total_steps=n, ckpt_every=n + 1,
+                                   ckpt_dir=d, log_every=1),
+                     make_batch=mk, seed=c["seed"], device="cuda")
+        n_params = sum(p.numel() for p in tr.params.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = tr.run()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        prof.stop()
+        peak = torch.cuda.max_memory_allocated()
+        del tr
+    pwall = stamps[-1] - stamps[-2]
+    ev = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    steps = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    ms = statistics.median(steps[1:])
+    m = out["metrics"]
+    return dict(cfg=cfg, train_params=n_params,
+                losses=[x["loss"] for x in m],
+                moe_aux=[x["moe_aux"] for x in m],
+                moe_z=[x["moe_z"] for x in m], ms_per_step=ms,
+                first_step_ms=steps[0],
+                tokens_per_s=c["train_batch"] * c["train_seq"] / ms * 1e3,
+                peak_bytes=peak, launches_per_step=sum(e.count for e in ev),
+                busy_share=busy / pwall)
+
+
+def _free_card() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _kv_quant_run(seed: int) -> dict:
+    """Qwen2-0.5B at full depth with the int8 and the f32 KV cache on the
+    same weights and teacher-forced tokens: cache bytes, every decode
+    step's logits against the f32 cache's, ms per decode step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    c = KV_QUANT
+    cfg = get_config(c["arch"])
+    model = T.init_params(cfg, seed=seed, device="cuda")
+    inp = _family_inputs(cfg, FAMILIES["serve_batch"], c["prompt"],
+                         c["decode"], seed)
+    runs = {name: _serve_run(model, dataclasses.replace(cfg, kv_quant=q),
+                             inp, c["prompt"], c["decode"])
+            for name, q in (("f32", False), ("int8", True))}
+    nbytes = {name: sum(t.numel() * t.element_size()
+                        for t in r["cache"].values())
+              for name, r in runs.items()}
+    rel = max(float((q - f).abs().max() / f.abs().max()) for q, f in
+              zip(runs["int8"]["logits"], runs["f32"]["logits"]))
+    del model, runs
+    _free_card()
+    return dict(cfg=cfg, bytes=nbytes, ratio=nbytes["int8"] / nbytes["f32"],
+                want_ratio=(cfg.hd + 2) / (4 * cfg.hd), rel=rel)
+
+
+def phase_families() -> dict:
+    """Every non-dense family at its published widths, f32, random
+    weights from a fixed seed (``FAMILIES``): serving at full depth
+    (prefill, teacher-forced decode steps, the first against a full
+    prefill), then training at a cut depth through the ``Trainer``; the
+    int8 KV cache at Qwen2-0.5B (``KV_QUANT``); each family's smoke-config
+    step-1 loss against the reference's (``FAMILIES_SMOKE_LOSS``) and the
+    bitwise resume at ``FAMILIES_RESUME``'s smoke config. Neither kernel
+    is on these paths."""
+    import dataclasses
+    import math
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    c = FAMILIES
+    K.hybrid_search.launches = 0
+    K.paged_attention.launches = 0
+    rec = {}
+    for arch, layers in c["archs"].items():
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        model = T.init_params(cfg, seed=c["seed"], device="cuda")
+        n_params = sum(p.numel() for p in model.parameters())
+        inp = _family_inputs(cfg, c["serve_batch"], c["prompt"],
+                             c["decode"], c["seed"])
+        srv = _serve_run(model, cfg, inp, c["prompt"], c["decode"])
+        check(all(bool(torch.isfinite(x).all()) for x in srv["logits"]),
+              f"families: {arch}: non-finite serving logits")
+        if cfg.family == "moe":
+            # no token dropped in either run: both route every token alike
+            m = cfg.moe
+            tf = _teacher_forced(model, cfg.replace(moe=dataclasses.replace(
+                m, capacity_factor=m.n_experts / m.top_k)), inp, c["prompt"])
+        else:
+            tf = _teacher_forced(model, cfg, inp, c["prompt"],
+                                 first=srv["logits"][1])
+        check(tf <= c["tf_rtol"],
+              f"families: {arch}: teacher-forced decode differs from the "
+              f"full prefill by {tf:.3e} of its largest logit (> "
+              f"{c['tf_rtol']})")
+        serve_peak = torch.cuda.max_memory_allocated()
+        serve_ms = (srv["prefill_ms"], srv["decode_ms"])
+        del model, srv
+        _free_card()
+        trn = _train_family(arch, layers)
+        _free_card()
+        losses = trn["losses"]
+        check(all(map(math.isfinite, losses + trn["moe_aux"] + trn["moe_z"])),
+              f"families: {arch}: losses {losses}")
+        check(losses[-1] < losses[0],
+              f"families: {arch}: the loss did not fall: {losses}")
+        rec[arch] = dict(serve_params=n_params, prefill_ms=serve_ms[0],
+                         decode_ms=serve_ms[1], tf_err=tf,
+                         serve_peak_bytes=serve_peak, **{
+                             k: v for k, v in trn.items() if k != "cfg"})
+        log(f"[families] {cfg.name} ({cfg.family}, {smi}): serve "
+            f"{cfg.n_layers} layers, {n_params / 1e9:.2f} B f32 weights, "
+            f"batch {c['serve_batch']}: prefill {c['prompt']} in "
+            f"{rec[arch]['prefill_ms']:.1f} ms, decode "
+            f"{rec[arch]['decode_ms']:.2f} ms per step, peak "
+            f"{serve_peak / 2**30:.2f} GiB, teacher-forced {tf:.2e}; train "
+            f"{layers} layers ({trn['train_params'] / 1e9:.2f} B), batch "
+            f"{c['train_batch']} x {c['train_seq']}: losses "
+            f"{[round(x, 4) for x in losses]}"
+            + (f", moe_aux {trn['moe_aux'][0]:.4f}, moe_z "
+               f"{trn['moe_z'][0]:.4f}" if cfg.family == "moe" else "")
+            + f"; {trn['ms_per_step']:.1f} ms per step (first "
+            f"{trn['first_step_ms']:.1f}), {trn['tokens_per_s']:.1f} "
+            f"tokens/s, peak {trn['peak_bytes'] / 2**30:.2f} GiB, "
+            f"{trn['launches_per_step']} device launches per step, busy "
+            f"{100 * trn['busy_share']:.2f}%")
+
+    kv = _kv_quant_run(c["seed"])
+    check(math.isclose(kv["ratio"], kv["want_ratio"], rel_tol=1e-12),
+          f"families: int8 cache bytes {kv['bytes']} are "
+          f"{kv['ratio']:.6f} of the f32 cache's, not (D + 2) / 4D = "
+          f"{kv['want_ratio']:.6f}")
+    check(kv["rel"] <= KV_QUANT["rel"],
+          f"families: int8-cache decode logits differ from the f32 "
+          f"cache's by {kv['rel']:.4f} of its largest logit (> "
+          f"{KV_QUANT['rel']})")
+    log(f"[families] {kv['cfg'].name} kv_quant ({smi}): cache "
+        f"{kv['bytes']['int8']} bytes against {kv['bytes']['f32']} f32 "
+        f"({kv['ratio']:.6f} = (D + 2) / 4D), prefill {KV_QUANT['prompt']} "
+        f"+ {KV_QUANT['decode']} decode steps: logits within "
+        f"{kv['rel']:.4f} of the f32 cache's largest")
+
+    smoke = {}
+    for arch, want in FAMILIES_SMOKE_LOSS.items():
+        smoke[arch] = families_smoke_loss(arch)
+        check(math.isclose(smoke[arch], want, rel_tol=1e-4),
+              f"families: {arch} smoke step-1 loss {smoke[arch]!r} != "
+              f"the reference's {want!r} (rtol 1e-4)")
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with tempfile.TemporaryDirectory() as d:
+            res = bitwise_resume(d, arch=FAMILIES_RESUME)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(K.hybrid_search.launches == 0 and K.paged_attention.launches == 0,
+          "families: a model family launched a DiLi or serving kernel")
+    log(f"[families] smoke configs' step-1 losses equal the reference's "
+        f"(rtol 1e-4): " + ", ".join(
+            f"{a} {v:.6f}" for a, v in smoke.items())
+        + f"; {FAMILIES_RESUME} smoke config: resumed at step "
+        f"{res['resumed_at']}, all {res['tensors']} weight tensors equal "
+        f"the uninterrupted run's bit for bit")
+    return dict(runs=rec, kv_quant=kv, smoke=smoke,
+                launches=dict(hybrid_search=K.hybrid_search.launches,
+                              paged_attention=K.paged_attention.launches))
 
 
 def phase_serving() -> dict:
@@ -3025,6 +3364,9 @@ def main() -> None:
     t_phase = time.perf_counter()
     train = phase_train()
     log(f"[train] the phase in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    fam = phase_families()
+    log(f"[families] the phase in {time.perf_counter() - t_phase:.1f} s")
     scale = phase_scale(SCALE_KEYS, SCALE_TIMED_ROUNDS)
     scale4 = phase_scale4(SCALE4_KEYS)
 
@@ -3037,6 +3379,7 @@ def main() -> None:
         launches=f3["plain"]["launches"], max_abs_err=k["max_abs_err"],
         launches_fig3a_r10=f3s["dili_r10"]["launches"],
         launches_train=train["launches"]["hybrid_search"],
+        launches_families=fam["launches"]["hybrid_search"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None,
         shape=k["shape"], call_ms=k["call_ms"],
@@ -3076,6 +3419,7 @@ def main() -> None:
         serving_dili_shards=2,
         serving_moves={m: r["moves"] for m, r in serving["runs"].items()},
         launches_train=train["launches"]["paged_attention"],
+        launches_families=fam["launches"]["paged_attention"],
         ms_by_shape={n: r["ms"] for n, r in prec.items()})]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3109,6 +3453,11 @@ def main() -> None:
         f"{train['tokens_per_s']:.1f} tokens/s, peak "
         f"{train['peak_bytes'] / 2**30:.2f} GiB, busy "
         f"{100 * train['busy_share']:.2f}%")
+    log("[families] " + "; ".join(
+        f"{a}: train {r['ms_per_step']:.1f} ms per step, "
+        f"{r['tokens_per_s']:.1f} tokens/s, peak "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB; decode {r['decode_ms']:.2f} "
+        f"ms per step" for a, r in fam["runs"].items()))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi[0], flush=True)

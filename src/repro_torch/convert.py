@@ -1,10 +1,11 @@
 """Carry state and weights between the reference package and the port.
 
-``params_from_numpy`` builds the port's ``DenseLM`` from the reference's
-parameter tree (``models.transformer.init_params``) as numpy arrays, with
-its layer-stacked ``blocks``, so both packages compute with the same
-weights; ``params_to_numpy`` is the way back. The optimizer state goes
-both ways too (``opt_state_to_numpy`` / ``opt_state_from_numpy``: the
+``params_from_numpy`` builds the port's ``LM`` (any family) from the
+reference's parameter tree (``models.transformer.init_params``) as numpy
+arrays, with its layer-stacked ``blocks``, so both packages compute with
+the same weights; ``params_to_numpy`` is the way back, and
+``numpy_params`` draws such a tree with numpy alone. The optimizer state
+goes both ways too (``opt_state_to_numpy`` / ``opt_state_from_numpy``: the
 reference's ``{"mu", "nu", "step"}`` with ``mu`` and ``nu`` shaped as the
 parameter tree), so a training checkpoint (``{"params", "opt"}``) written
 by either package restores in the other; ``template_tree`` /
@@ -31,7 +32,8 @@ import torch
 
 from .core.bg.fsm import BgState
 from .models.config import ArchConfig
-from .models.transformer import DenseLM
+from .models.ssm import dt_rank
+from .models.transformer import LM
 from .optim import adamw_init
 from .core.types import (Blocks, Pool, Registry, ReplicaSlots, RepSessions,
                          ShardState, resolve_device)
@@ -133,7 +135,7 @@ def tree_to_named(tree: dict, names) -> dict:
     return out
 
 
-def params_to_numpy(model: DenseLM) -> dict:
+def params_to_numpy(model: LM) -> dict:
     """The reference's parameter tree (numpy) holding ``model``'s
     weights."""
     return named_to_tree(dict(model.named_parameters()))
@@ -176,7 +178,7 @@ def _load_named_(named: dict, tree: dict, what: str) -> None:
         dst.copy_(torch.from_numpy(np.array(arr, order="C")))
 
 
-def load_params_(model: DenseLM, tree: dict) -> DenseLM:
+def load_params_(model: LM, tree: dict) -> LM:
     """Copy the reference's parameter tree (numpy) into ``model``'s
     weights in place."""
     _load_named_(dict(model.named_parameters()), tree, "load_params_")
@@ -184,16 +186,104 @@ def load_params_(model: DenseLM, tree: dict) -> DenseLM:
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, *, dtype=None,
-                      device="cuda") -> DenseLM:
-    """A port ``DenseLM`` on ``device`` from the reference's parameter tree
-    as nested dicts of numpy arrays: ``embed`` [V, D], ``final_norm``,
-    optional ``lm_head``, and ``blocks`` with a leading layer axis
-    (``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo,bq,bk,bv}``,
-    ``mlp.{w_gate,w_up,w_down}``). ``dtype`` defaults to the tree's."""
+                      device="cuda") -> LM:
+    """A port ``LM`` of ``cfg``'s family on ``device`` from the
+    reference's parameter tree as nested dicts of numpy arrays:
+    ``embed`` [V, D], ``final_norm``, optional ``lm_head`` and
+    ``shared`` (hybrid), and ``blocks`` with a leading layer axis
+    (``ln1``, then ``attn``, ``ln2`` and ``mlp`` or ``moe`` — experts
+    [L, E, D, F] — or ``mamba``). ``dtype`` defaults to the tree's; the
+    leaves the reference keeps in f32 (the router, ``a_log``...) stay
+    f32."""
     if dtype is None:
         dtype = torch.from_numpy(
             np.zeros((0,), np.asarray(tree["embed"]).dtype)).dtype
-    return load_params_(DenseLM(cfg, dtype=dtype, device=device), tree)
+    return load_params_(LM(cfg, dtype=dtype, device=device), tree)
+
+
+def numpy_params(cfg: ArchConfig, seed: int) -> dict:
+    """Weights of ``cfg``'s family in the reference's parameter tree
+    (layers stacked), f32, drawn by numpy from ``seed``: each matrix
+    Normal(0, 1/fan_in), the embedding Normal(0, 1/d_model), norm scales
+    1 + 0.1 Normal, biases 0.02 Normal, and the SSM blocks' fixed inits
+    (``a_log``, ``dt_bias``, ``d_skip``) jittered by 0.1 Normal — one set
+    of weights for both packages. The attention families draw the
+    attention weights, the embedding, the norms, then the FFN, the final
+    norm and the head, in that order (the constants recorded from these
+    weights depend on it)."""
+    rng = np.random.default_rng(seed)
+    n, d = cfg.n_layers, cfg.d_model
+
+    def w(*shape, scale=None):
+        scale = shape[-2] ** -0.5 if scale is None else scale
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def near(value, *shape, scale=0.1):
+        return (value + scale * rng.standard_normal(shape)).astype(
+            np.float32)
+
+    def attn(*lead):
+        q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+        a = {"wq": w(*lead, d, q), "wk": w(*lead, d, kv),
+             "wv": w(*lead, d, kv), "wo": w(*lead, q, d)}
+        if cfg.qkv_bias:
+            a |= {"bq": w(*lead, q, scale=0.02),
+                  "bk": w(*lead, kv, scale=0.02),
+                  "bv": w(*lead, kv, scale=0.02)}
+        return a
+
+    def mlp(*lead):
+        f = cfg.d_ff
+        return {"w_gate": w(*lead, d, f), "w_up": w(*lead, d, f),
+                "w_down": w(*lead, f, d)}
+
+    if cfg.family in ("ssm", "hybrid"):
+        tree = {"embed": w(cfg.vocab, d, scale=d ** -0.5)}
+        s = cfg.ssm
+        di = s.expand * d
+        if s.version == 1:
+            r = dt_rank(cfg)
+            mamba = {"in_proj": w(n, d, 2 * di),
+                     "conv_w": w(n, s.conv_width, di),
+                     "conv_b": w(n, di, scale=0.02),
+                     "x_bc": w(n, di, r + 2 * s.state),
+                     "dt_proj": w(n, r, di),
+                     "dt_bias": near(-4.6, n, di),
+                     "a_log": near(np.log(np.arange(1, s.state + 1)), n, di,
+                                   s.state),
+                     "d_skip": near(1.0, n, di),
+                     "out_proj": w(n, di, d)}
+        else:
+            nh = di // s.head_dim
+            mamba = {"in_proj": w(n, d, 2 * di + 2 * s.state + nh),
+                     "conv_w": w(n, s.conv_width, di + 2 * s.state),
+                     "conv_b": w(n, di + 2 * s.state, scale=0.02),
+                     "a_log": near(np.log(np.linspace(1.0, 16.0, nh)), n,
+                                   nh),
+                     "dt_bias": near(-4.6, n, nh),
+                     "d_skip": near(1.0, n, nh),
+                     "norm_scale": near(1.0, n, di),
+                     "out_proj": w(n, di, d)}
+        tree["blocks"] = {"ln1": near(1.0, n, d), "mamba": mamba}
+    else:
+        blk = {"attn": attn(n)}
+        tree = {"embed": w(cfg.vocab, d, scale=d ** -0.5)}
+        blk |= {"ln1": near(1.0, n, d), "ln2": near(1.0, n, d)}
+        if cfg.family == "moe":
+            m = cfg.moe
+            e, f = m.n_experts, m.d_ff_expert
+            blk["moe"] = {"router": w(n, d, e), "w_gate": w(n, e, d, f),
+                          "w_up": w(n, e, d, f), "w_down": w(n, e, f, d)}
+        else:
+            blk["mlp"] = mlp(n)
+        tree["blocks"] = blk
+    tree["final_norm"] = near(1.0, d)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = w(d, cfg.vocab)
+    if cfg.family == "hybrid":
+        tree["shared"] = {"ln1": near(1.0, d), "attn": attn(),
+                          "ln2": near(1.0, d), "mlp": mlp()}
+    return tree
 
 
 def opt_state_to_numpy(state: dict) -> dict:
@@ -220,7 +310,7 @@ def load_opt_state_(state: dict, tree: dict) -> dict:
     return state
 
 
-def opt_state_from_numpy(tree: dict, model: DenseLM) -> dict:
+def opt_state_from_numpy(tree: dict, model: LM) -> dict:
     """The port's AdamW state for ``model`` (on its device) from the
     reference's state tree."""
     return load_opt_state_(adamw_init(model), tree)

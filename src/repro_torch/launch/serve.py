@@ -7,7 +7,10 @@ from a fixed seed (no checkpoint is read). The engine attends through the
 ``paged_attention`` kernel (on a CPU device, its plain twin). With
 ``--rebalance`` the DiLi balancer runs between decode steps: it splits
 the page index once a sublist outgrows its threshold and, over two or
-more shards (``--dili-shards``), moves sublists between them.
+more shards (``--dili-shards``), moves sublists between them. The paged
+engine serves the dense text family; another ``--arch`` exits with the
+engine's ``ValueError`` before any weights are made (ROADMAP Queue 3
+item 6).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import numpy as np
 
 from ..configs import get_config, get_smoke_config
 from ..models import transformer as T
-from ..serving.engine import Request, ServingEngine
+from ..serving.engine import Request, ServingEngine, check_servable
 
 
 def main(argv=None):
@@ -35,6 +38,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    check_servable(cfg)
     params = T.init_params(cfg, seed=0, device=args.device)
     eng = ServingEngine(cfg, params, page_size=args.page_size,
                         num_pages=256, max_batch=args.requests,

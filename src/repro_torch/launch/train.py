@@ -2,8 +2,10 @@
 
 Runs a training run through the port's whole stack — config, synthetic
 data pipeline, train step, checkpointing, resume — on the GPU unless
-``--device cpu``. The weights are random, drawn from a fixed seed.
-``--smoke`` takes the reduced config (CPU-runnable).
+``--device cpu``, for any ``--arch`` of ``configs.ARCH_IDS`` (the logged
+metrics include the MoE losses ``moe_aux`` and ``moe_z``). The weights
+are random, drawn from a fixed seed. ``--smoke`` takes the reduced
+config (CPU-runnable).
 """
 from __future__ import annotations
 

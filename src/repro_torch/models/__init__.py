@@ -1,4 +1,5 @@
-"""The LM stack of the port: the dense family at training
-(``forward_train``) and serving (prefill and cached decode). Other
-families and the int8 KV cache come with later slices of the port."""
-from . import attention, config, layers, transformer  # noqa: F401
+"""The LM stack of the port: every family of the reference (dense, moe,
+ssm, hybrid, and the vision and audio stubs) at training
+(``forward_train``) and serving (prefill and cached decode, with a float
+or int8 KV cache)."""
+from . import attention, config, layers, moe, ssm, transformer  # noqa: F401

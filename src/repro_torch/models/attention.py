@@ -3,8 +3,10 @@ decode (the reference's ``models/attention.py``).
 
 These stay plain PyTorch: the reference computes them outside any Pallas
 kernel. The paged decode path (``serving/paged.py``) calls the
-``paged_attention`` kernel instead of ``decode_attention``. The int8 KV
-cache (``kv_quant``) comes with a later slice of the port.
+``paged_attention`` kernel instead of ``decode_attention``. A cache that
+holds ``k_scale``/``v_scale`` is the int8 KV cache (``cfg.kv_quant``):
+codes with per-(token, KV head) fp16 scales, written quantized and read
+back dequantized.
 """
 from __future__ import annotations
 
@@ -64,6 +66,19 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     return out.reshape(b, 1, h, d)
 
 
+def _quant_kv(x):
+    """int8-quantize [B,T,KH,D] with per-(token, head) scales; rounds half
+    to even, as the reference."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def _dequant_kv(q, scale, dtype):
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
 def qkv_proj(params, x, cfg, positions):
     """The q/k/v projections with bias and RoPE: x [B, T, d_model] ->
     q [B, T, H, D], k and v [B, T, KH, D]. ``params`` has
@@ -88,40 +103,46 @@ def attention_block(params, x, cfg, *, positions, kv_cache=None,
     """Full attention sub-layer: qkv proj + rope + attn + out proj.
 
     ``params`` as for ``qkv_proj``, plus ``wo``. ``kv_cache`` is None or
-    dict(k=[B,S,KH,D], v=[B,S,KH,D]) in f32 or bf16; the caches are
+    dict(k=[B,S,KH,D], v=[B,S,KH,D]) in f32 or bf16, plus int8 codes'
+    ``k_scale``/``v_scale`` [B,S,KH] for the int8 cache; the caches are
     written out of place, as the reference does. Returns
     (out, new_kv_cache).
     """
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "attention_block: the int8 KV cache (kv_quant) comes with a "
-            "later slice of the port")
     b, t, _ = x.shape
     q, k, v = qkv_proj(params, x, cfg, positions)
 
-    if kv_cache is not None:
+    if kv_cache is None:
+        out, new_cache = causal_attention(q, k, v,
+                                          q_chunk=cfg.attn_q_chunk), None
+    else:
+        new = {"k": k, "v": v}
+        if "k_scale" in kv_cache:
+            new["k"], new["k_scale"] = _quant_kv(k)
+            new["v"], new["v_scale"] = _quant_kv(v)
         if decode:
             # insert the new token at cache_len (per batch row), as the
             # reference's masked select
             pos = torch.arange(kv_cache["k"].shape[1], device=x.device)
-            at = (pos[None, :] == cache_len[:, None])[:, :, None, None]
+            at = pos[None, :] == cache_len[:, None]             # [B, S]
             new_cache = {
-                "k": torch.where(at, k.to(kv_cache["k"].dtype),
-                                 kv_cache["k"]),
-                "v": torch.where(at, v.to(kv_cache["v"].dtype),
-                                 kv_cache["v"])}
-            out = decode_attention(q, new_cache["k"], new_cache["v"],
-                                   cache_len + 1)
+                n: torch.where(at.reshape(at.shape + (1,) * (c.dim() - 2)),
+                               new[n].to(c.dtype), c)
+                for n, c in kv_cache.items()}
+            if "k_scale" in kv_cache:
+                kf = _dequant_kv(new_cache["k"], new_cache["k_scale"],
+                                 x.dtype)
+                vf = _dequant_kv(new_cache["v"], new_cache["v_scale"],
+                                 x.dtype)
+            else:
+                kf, vf = new_cache["k"], new_cache["v"]
+            out = decode_attention(q, kf, vf, cache_len + 1)
         else:  # prefill: write the whole prefix
             new_cache = {}
-            for name, new in (("k", k), ("v", v)):
-                c = kv_cache[name].clone()
-                c[:, :t] = new.to(c.dtype)
-                new_cache[name] = c
+            for n, c in kv_cache.items():
+                c = c.clone()
+                c[:, :t] = new[n].to(c.dtype)
+                new_cache[n] = c
             out = causal_attention(q, k, v, q_chunk=cfg.attn_q_chunk)
-    else:
-        out = causal_attention(q, k, v, q_chunk=cfg.attn_q_chunk)
-        new_cache = None
 
     out = out.reshape(b, t, -1) @ params.wo
     return out, new_cache

@@ -1,9 +1,11 @@
 """Fault-tolerant training runtime (the reference's ``runtime/train.py``,
 one device, no mesh).
 
-``build_train_step`` returns the step: ``forward_train``, the backward
-pass through autograd, and ``adamw_update`` in place. ``Trainer`` wraps it
-with the loop's mechanics:
+``build_train_step`` returns the step, for every model family:
+``forward_train``, the backward pass through autograd, and
+``adamw_update`` in place; the metrics carry the loss, ``ce_loss`` and
+the MoE losses ``moe_aux`` and ``moe_z`` (zero outside the moe family).
+``Trainer`` wraps it with the loop's mechanics:
 
   * checkpoint/restart — resume is bitwise: the data pipeline is a pure
     function of the step and the optimizer state is checkpointed. The
@@ -40,7 +42,10 @@ def build_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig):
         params.requires_grad_(True)
         loss, metrics = T.forward_train(params, cfg, batch)
         names, ps = zip(*params.named_parameters())
-        grads = dict(zip(names, torch.autograd.grad(loss, ps)))
+        # a weight the loss does not reach (the audio stub's embedding)
+        # gets a zero gradient, as under the reference's value_and_grad
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, ps, allow_unused=True, materialize_grads=True)))
         params, opt_state, opt_metrics = adamw_update(
             opt_cfg, params, grads, opt_state)
         return params, opt_state, {"loss": loss.detach(), **{

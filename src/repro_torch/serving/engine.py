@@ -33,13 +33,33 @@ class Request:
     done: bool = False
 
 
+def check_servable(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` unless the paged engine serves ``cfg``: the
+    dense text family with a float KV cache. The reference's engine
+    serves no more (ROADMAP Queue 3 item 6): it admits moe and vlm
+    configs and then fails deep in a step, with ``KeyError: 'mlp'`` in
+    ``paged_decode_step`` (no MoE FFN) or ``KeyError: 'patch_embeds'``
+    at admission."""
+    if cfg.family != "dense" or cfg.modality != "text":
+        raise ValueError(
+            f"{cfg.name}: the paged serving engine runs the dense text "
+            f"family, not family {cfg.family!r} / modality "
+            f"{cfg.modality!r} (ROADMAP Queue 3 item 6); serve it with "
+            f"models.transformer.forward_serve")
+    if cfg.kv_quant:
+        raise ValueError(
+            f"{cfg.name}: the paged serving engine keeps float KV pages; "
+            f"the int8 KV cache (kv_quant) runs through "
+            f"models.transformer.forward_serve")
+
+
 class ServingEngine:
-    def __init__(self, cfg: ArchConfig, params: T.DenseLM, *,
+    def __init__(self, cfg: ArchConfig, params: T.LM, *,
                  page_size: int = 16, num_pages: int = 256,
                  max_batch: int = 8, dili_shards: int = 1,
                  dtype=torch.float32, use_kernel: bool = False,
                  refresh_mode: str = "range", device="cuda"):
-        T.check_supported(cfg)
+        check_servable(cfg)
         self.cfg, self.params = cfg, params
         self.kv = PagedKVManager(cfg, num_pages=num_pages,
                                  page_size=page_size,

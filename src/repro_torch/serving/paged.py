@@ -234,7 +234,7 @@ class PagedKVManager:
 
 
 @torch.no_grad()
-def paged_decode_step(params: T.DenseLM, cfg: ArchConfig, tokens, k_pages,
+def paged_decode_step(params: T.LM, cfg: ArchConfig, tokens, k_pages,
                       v_pages, page_table, seq_lens, *, page_size: int,
                       use_kernel: bool = True):
     """One decode step for dense-family models over paged KV.

@@ -13,10 +13,10 @@ C3  Carry-over: a reference run's states, background tables and backlog
     are carried into the port through ``repro_torch.convert`` mid-stream
     (a Split in flight) and both continue on the same feed in lockstep.
 C4  Guards: the package imports neither ``jax`` nor ``repro``; entry points
-    default to CUDA and raise without it; what is not ported yet (the
-    SPMD backend, ``forward_train``, the int8 KV cache, the non-dense
-    families) raises; the transport's nemesis, a membership join and a
-    WAL run, equal to the reference.
+    default to CUDA and raise without it; every family trains through
+    the ``Trainer``, and the paged serving engine refuses every family
+    but the dense text one, and the int8 KV cache; the transport's
+    nemesis, a membership join and a WAL run, equal to the reference.
 """
 import ast
 import os
@@ -276,22 +276,41 @@ def test_c4_entry_points_default_to_cuda():
             make()
 
 
-def test_c4_work_outside_the_slice_raises():
-    # the int8 KV cache and the non-dense families (item 14), at serving
-    # and in forward_train: each raises rather than running something else
+def test_c4_work_outside_the_slice_raises(tmp_path):
+    # the int8 KV cache and the non-dense families (item 14) once raised
+    # here; every family trains now, one step through the Trainer. The
+    # paged serving engine still serves the dense text family
+    # only: the others, and kv_quant, raise ValueError before any weights
+    # are made (ROADMAP Queue 3 item 6)
     from repro_torch.configs import ARCH_IDS, get_smoke_config
-    from repro_torch.models import transformer as TR
-    dense = get_smoke_config("qwen2_0_5b")
-    with pytest.raises(NotImplementedError, match="int8"):
-        TR.check_supported(dense.replace(kv_quant=True))
-    others = [n for n in ARCH_IDS if get_smoke_config(n).family != "dense"
-              or get_smoke_config(n).modality != "text"]
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.launch import serve
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import Trainer, TrainerConfig
+    from repro_torch.serving.engine import check_servable
+    cell = ShapeCell("t", "train", 64, 2)
+    others = []
+    for name in ARCH_IDS:
+        cfg = get_smoke_config(name)
+        tr = Trainer(cfg, cell, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=1),
+                     TrainerConfig(total_steps=1, ckpt_every=1,
+                                   ckpt_dir=str(tmp_path / name),
+                                   log_every=1),
+                     make_batch=lambda s, c=cfg: make_train_batch(
+                         c, cell, step=s, dtype=torch.float32,
+                         device="cpu"), device="cpu")
+        m = tr.run()["metrics"][0]
+        assert np.isfinite(m["loss"]) and int(tr.opt_state["step"]) == 1
+        assert (m["moe_aux"] > 0) == (cfg.family == "moe"), name
+        if cfg.family != "dense" or cfg.modality != "text":
+            others.append(name)
+            with pytest.raises(ValueError, match="Queue 3 item 6"):
+                serve.main(["--arch", name, "--smoke", "--device", "cpu"])
     assert len(others) == 6, others
-    for name in others:
-        with pytest.raises(NotImplementedError, match="family"):
-            TR.check_supported(get_smoke_config(name))
-        with pytest.raises(NotImplementedError, match="family"):
-            TR.forward_train(None, get_smoke_config(name), None)
+    with pytest.raises(ValueError, match="kv_quant"):
+        check_servable(get_smoke_config("qwen2_0_5b").replace(kv_quant=True))
 
 
 def _fault_run(pkg, case, tmp):

@@ -122,18 +122,53 @@ def test_init_params_is_seeded_and_scaled():
 
 
 def test_families_outside_the_slice_raise():
-    for arch in ("qwen3_moe_235b_a22b", "falcon_mamba_7b", "zamba2_7b",
-                 "musicgen_medium", "llava_next_mistral_7b"):
-        with pytest.raises(NotImplementedError):
-            TT.init_params(get_smoke_config(arch), device="cpu")
-    cfg = get_smoke_config("qwen2_0_5b")
-    with pytest.raises(NotImplementedError):
-        TT.init_cache(cfg.replace(kv_quant=True), 1, 8, device="cpu")
-    # training runs the dense family; the others still raise
-    for arch in ("qwen3_moe_235b_a22b", "falcon_mamba_7b", "zamba2_7b",
-                 "musicgen_medium", "llava_next_mistral_7b"):
-        with pytest.raises(NotImplementedError):
-            TT.forward_train(None, get_smoke_config(arch), {})
+    """The families once outside the port's model slice (moe, ssm,
+    hybrid, the stub modalities) and the int8 KV cache run now: for every
+    smoke config of ``ARCH_IDS``, and Qwen2-0.5B's with ``kv_quant``,
+    ``init_params``, ``init_cache``, ``forward_train`` (and its backward
+    pass) and ``forward_serve`` (prefill and one decode step) give finite
+    outputs of the expected shapes. What stays outside raises: the paged
+    serving engine, for all but the dense text family with a float
+    cache (ROADMAP Queue 3 item 6)."""
+    from repro_torch.data.synthetic import make_serve_batch, make_train_batch
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.serving.engine import check_servable
+    cfgs = [get_smoke_config(a) for a in ARCH_IDS]
+    cfgs.append(get_smoke_config("qwen2_0_5b").replace(kv_quant=True))
+    b = 2
+    for cfg in cfgs:
+        model = TT.init_params(cfg, seed=0, device="cpu")
+        batch = make_train_batch(cfg, ShapeCell("t", "train", 64, b),
+                                 dtype=torch.float32, device="cpu")
+        model.requires_grad_(True)
+        loss, met = TT.forward_train(model, cfg, batch)
+        assert torch.isfinite(loss) and sorted(met) == [
+            "ce_loss", "moe_aux", "moe_z"], cfg.name
+        assert (float(met["moe_aux"].detach()) > 0) == (cfg.family == "moe")
+        loss.backward()
+        assert all(p.grad is None or torch.isfinite(p.grad).all()
+                   for p in model.parameters()), cfg.name
+        model.requires_grad_(False)
+        prompt = make_serve_batch(cfg, ShapeCell("s", "decode", 16, b),
+                                  decode=False, dtype=torch.float32,
+                                  device="cpu")
+        cache = TT.init_cache(cfg, b, 24, device="cpu")
+        logits, cache = TT.forward_serve(
+            model, cfg, prompt, cache, torch.zeros((b,), dtype=torch.int32),
+            decode=False)
+        step = make_serve_batch(cfg, ShapeCell("s", "decode", 16, b),
+                                decode=True, dtype=torch.float32,
+                                device="cpu")
+        logits2, _ = TT.forward_serve(model, cfg, step, cache,
+                                      torch.full((b,), 16, dtype=torch.int32),
+                                      decode=True)
+        for x in (logits, logits2):
+            assert x.shape == (b, cfg.vocab) and torch.isfinite(x).all()
+        if cfg.family == "dense" and not cfg.kv_quant:
+            check_servable(cfg)
+        else:
+            with pytest.raises(ValueError):
+                check_servable(cfg)
 
 
 def test_prefill_longer_than_q_chunk_and_ragged():

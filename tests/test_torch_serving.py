@@ -24,6 +24,12 @@ S2b The chip smoke's serving run (``chip_smoke.SERVE``: 8 live requests of
 S3  The guards: ``PagePoolExhausted``, ``BatchOverflow``, double
     allocation, ``free_seq`` recycling, the sentinel and the
     never-allocated ``KeyError``; entry points default to CUDA.
+S4  The engine serves the dense text family only, as the reference's
+    really does (ROADMAP Queue 3 item 6): a moe or vlm smoke config, or
+    the int8 KV cache, raises ``ValueError`` at construction (the
+    reference fails with a ``KeyError`` inside admission or a decode
+    step for moe and vlm and, with ``kv_quant``, decodes its int8 codes
+    as floats).
 """
 import jax
 import jax.numpy as jnp
@@ -299,3 +305,17 @@ def test_launch_serve_smoke_on_cpu(capsys, shards):
                 "--max-new", "3", "--dili-shards", shards, "--rebalance"])
     out = capsys.readouterr().out
     assert "seq 1: generated" in out
+
+
+# ------------------------------------------------------------------ S4
+
+@pytest.mark.parametrize("arch,kw,match", [
+    ("granite_moe_3b_a800m", {}, "'moe'.*Queue 3 item 6"),
+    ("llava_next_mistral_7b", {}, "'vlm'.*Queue 3 item 6"),
+    ("qwen2_0_5b", {"kv_quant": True}, "kv_quant")])
+def test_serving_engine_refuses_what_it_cannot_serve(arch, kw, match):
+    cfg = get_smoke_config(arch).replace(**kw)
+    params = TT.init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        TE.ServingEngine(cfg, params, page_size=8, num_pages=16,
+                         max_batch=2, device="cpu")

@@ -221,7 +221,7 @@ def test_checkpoints_cross_the_packages(tmp_path):
 
 def test_trainer_losses_match_reference(tmp_path):
     cfg = get_smoke_config("qwen2_5_3b")
-    tree = SMOKE.numpy_params(cfg, 5)
+    tree = convert.numpy_params(cfg, 5)
     j = _j_trainer(tmp_path / "j", 5, 100, log_every=1)
     j.params = jax.tree_util.tree_map(jnp.asarray, tree)
     from repro.optim import adamw_init as j_init
@@ -239,7 +239,7 @@ def test_train_smoke_loss_constant_is_the_references():
     from repro.models import transformer as JT
     c = SMOKE.TRAIN_SMOKE
     cfg = j_smoke(c["arch"])
-    tree = SMOKE.numpy_params(cfg, c["weights_seed"])
+    tree = convert.numpy_params(cfg, c["weights_seed"])
     batch = j_batch(cfg, JCell("smoke_train", "train", c["seq"],
                                c["batch"]), seed=c["data_seed"], step=0,
                     dtype=jnp.float32)
