@@ -152,6 +152,20 @@ which makes the script exit non-zero when it fails:
                rtol 1e-4), granite's smoke config resumes bit for bit, and
                neither kernel launches. ms per train step, tokens/s, peak
                memory, device launches per step, ms per decode step;
+  7c. dryrun — (a) Qwen2-0.5B at full width, f32, ``TRAIN``'s batch,
+               ``MESH_STEPS`` steps through ``build_train_step(mesh=
+               make_host_mesh())`` on a one-card NCCL group: its losses
+               equal the no-mesh step's (``MESH_RTOL``) from the same seed
+               and weights, every weight a DTensor after the first step,
+               neither kernel launched; ms per step beside ``[train]``'s
+               and the model flops' share of the f32 peak. (b) the
+               production dry-run (``python -m repro_torch.launch.dryrun``
+               per cell of ``DRYRUN_CELLS``, a fake process group of 256 or
+               512 ranks in a subprocess of its own, started after the
+               build and run beside the other phases): every cell ends
+               with finite per-device flops, bytes, collective bytes,
+               roofline terms and MFU bound, dili-service with
+               ``DRYRUN_A2A`` all-to-all bytes per device;
   8. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
                entries) with ``SCALE_KEYS`` loaded keys and as many r50
                ops, checked against the oracle; then a window of rounds
@@ -212,6 +226,25 @@ SKIPLIST_EXPECTED = {
 # under the host clock and `profiled` under the profiler
 TRAIN = dict(arch="qwen2_0_5b", batch=4, seq=256, steps=8, lr=1e-3,
              warmup=2, seed=0, timed=3, profiled=3)
+
+# [dryrun]: TRAIN's model and batch for MESH_STEPS steps through the mesh
+# path on a one-card NCCL group, losses within MESH_RTOL of the no-mesh
+# step's; and the production dry-run's cells (arch, shape, multi_pod), each
+# a `python -m repro_torch.launch.dryrun` subprocess started after the
+# build and run one after another beside the other phases. dili-service's
+# all-to-all bytes per device on 16x16 are the reference's own dry-run's
+# (256 shards x cap_pair 4 x 15 fields x 4 bytes; tests/test_torch_dryrun.py)
+MESH_STEPS = 2
+MESH_RTOL = 1e-6
+DRYRUN_CELLS = (("qwen2_72b", "train_4k", False),
+                ("granite_moe_3b_a800m", "prefill_32k", False),
+                ("falcon_mamba_7b", "decode_32k", False),
+                ("zamba2_7b", "train_4k", True),
+                ("dili-service", None, False))
+DRYRUN_A2A = 61440
+DRYRUN_KEYS = ("flops_per_device", "bytes_per_device",
+               "collective_bytes_per_device", "roofline_mfu_bound")
+DRYRUN_TIMEOUT = 900
 
 # the training checks at the qwen2_5_3b smoke config (tests/
 # test_substrates.py's cell and bitwise-resume schedule): weights drawn by
@@ -2892,6 +2925,170 @@ def phase_train() -> dict:
                     paged_attention=K.paged_attention.launches))
 
 
+_CHILDREN: list = []
+
+
+def _stop_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_dryrun(out_dir: str):
+    """The production dry-run's cells, one ``python -m
+    repro_torch.launch.dryrun`` subprocess each (its fake process group in
+    a process of its own), run one after another on a thread beside the
+    other phases; ``phase_dryrun`` joins it. Returns (thread, results:
+    cell -> (returncode, seconds, JSON lines, output tail))."""
+    import threading
+    results = {}
+
+    def run():
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            out = os.path.join(out_dir, f"{arch}_{shape}.jsonl")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--out", out]
+            cmd += ["--shape", shape] if shape else []
+            cmd += ["--multi-pod"] if multi_pod else []
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+                env=dict(os.environ, PYTHONPATH=str(SRC)))
+            _CHILDREN.append(proc)
+            try:
+                text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+            lines = (pathlib.Path(out).read_text().splitlines()
+                     if os.path.exists(out) else [])
+            results[(arch, shape, multi_pod)] = (
+                proc.returncode, time.perf_counter() - t0,
+                [json.loads(x) for x in lines], text[-3000:])
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, results
+
+
+def _mesh_train(mesh) -> dict:
+    """``TRAIN``'s model, weights and batch for ``MESH_STEPS`` steps
+    through ``build_train_step`` (with ``mesh``, or without one when it is
+    None): losses and ms per step (host clock, a sync after each)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.train import build_train_step
+    c = TRAIN
+    cfg = get_config(c["arch"])
+    cell = ShapeCell("cli", "train", c["seq"], c["batch"])
+    batch = make_train_batch(cfg, cell, seed=0, step=0, dtype=torch.float32,
+                             device="cuda")
+    params = T.init_params(cfg, seed=c["seed"], device="cuda")
+    opt = adamw_init(params)
+    step = build_train_step(cfg, AdamWConfig(
+        lr=c["lr"], warmup_steps=c["warmup"], total_steps=c["steps"]),
+        mesh)
+    losses, ms = [], []
+    for _ in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    meshed = all(isinstance(p, DTensor) for p in params.parameters())
+    del params, opt
+    _free_card()
+    return dict(losses=losses, ms=ms, meshed=meshed, cfg=cfg, cell=cell)
+
+
+def phase_dryrun(train: dict, dry) -> dict:
+    """(a) Qwen2-0.5B at full width, f32, through
+    ``build_train_step(mesh=make_host_mesh())`` on a one-card NCCL group:
+    its losses against the no-mesh step's (``MESH_RTOL``) from the same
+    seed and weights, ms per step beside ``[train]``'s, the model flops'
+    share of the card's f32 peak; neither kernel launched. (b) the
+    production dry-run's cells (``DRYRUN_CELLS``): each finished with
+    finite per-device terms, dili-service with ``DRYRUN_A2A`` all-to-all
+    bytes per device."""
+    import math
+    import torch
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.roofline import PEAK_FLOPS_F32, model_flops
+    K.hybrid_search.launches = 0
+    K.paged_attention.launches = 0
+    plain = _mesh_train(None)
+    with host_mesh("cuda") as mesh:
+        meshed = _mesh_train(mesh)
+    check(meshed["meshed"] and not plain["meshed"],
+          "dryrun: the mesh step did not run on DTensors")
+    check(K.hybrid_search.launches == 0 and K.paged_attention.launches == 0,
+          "dryrun: the mesh training path launched a DiLi or serving kernel")
+    for a, b in zip(plain["losses"], meshed["losses"]):
+        check(math.isfinite(b) and math.isclose(a, b, rel_tol=MESH_RTOL),
+              f"dryrun: mesh losses {meshed['losses']} != no-mesh "
+              f"{plain['losses']} (rtol {MESH_RTOL})")
+    cfg, cell = meshed["cfg"], meshed["cell"]
+    ms = statistics.median(meshed["ms"][1:] or meshed["ms"])
+    flops = model_flops(cfg, cell)
+    log(f"[dryrun] mesh step ({cfg.name}, f32, {cell.global_batch} x "
+        f"{cell.seq_len}, 1-card NCCL mesh ('data',)): losses "
+        f"{meshed['losses']} = no-mesh {plain['losses']} (rtol "
+        f"{MESH_RTOL}); {ms:.2f} ms per step (steps "
+        f"{[round(x, 2) for x in meshed['ms']]}; no-mesh "
+        f"{[round(x, 2) for x in plain['ms']]}; [train]'s Trainer step "
+        f"{train['ms_per_step']:.2f} ms); model_flops {flops:.4e} per "
+        f"step = {flops / (ms / 1e3) / PEAK_FLOPS_F32 * 100:.2f}% of the "
+        f"f32 peak (67 TFLOP/s, no tensor cores), "
+        f"{torch.cuda.get_device_name(0)}")
+
+    thread, results = dry
+    t0 = time.perf_counter()
+    thread.join(timeout=DRYRUN_TIMEOUT * len(DRYRUN_CELLS))
+    waited = time.perf_counter() - t0
+    check(not thread.is_alive(), "dryrun: the dry-run cells did not end")
+    cells = {}
+    for key in DRYRUN_CELLS:
+        rc, secs, lines, tail = results.get(key, (None, 0.0, [], ""))
+        name = f"{key[0]} x {key[1] or 'round'} x " + \
+            ("2x16x16" if key[2] else "16x16")
+        check(rc == 0 and len(lines) == 1,
+              f"dryrun: {name} failed (rc {rc}):\n{tail}")
+        res = lines[0]
+        keys = DRYRUN_KEYS[:3] if key[0] == "dili-service" else DRYRUN_KEYS
+        vals = [res[k] for k in keys] + list(res["terms_seconds"].values())
+        check(all(isinstance(v, (int, float)) and math.isfinite(v)
+                  for v in vals) and res["dominant"] in res["terms_seconds"],
+              f"dryrun: {name}: terms not finite: {res}")
+        if key[0] == "dili-service":
+            check(res["collectives"].get("all-to-all") == DRYRUN_A2A,
+                  f"dryrun: dili-service all-to-all bytes "
+                  f"{res['collectives']} != {DRYRUN_A2A}")
+        cells[name] = res
+        t = res["terms_seconds"]
+        log(f"[dryrun] {name}: {secs:.1f} s ({res['compile_seconds']} s "
+            f"traced, seq {res.get('seq_len_traced', '-')}), flops/dev {res['flops_per_device']:.4e}, bytes/dev "
+            f"{res['bytes_per_device']:.4e}, coll/dev "
+            f"{res['collective_bytes_per_device']:.4e} "
+            f"{res['collectives']} (by role "
+            f"{res.get('collective_bytes_by_role', {})}); terms compute "
+            f"{t['compute']:.4e} / "
+            f"memory {t['memory']:.4e} / collective {t['collective']:.4e} "
+            f"s -> {res['dominant']}; roofline_mfu_bound "
+            f"{res.get('roofline_mfu_bound', float('nan')):.4e}")
+    log(f"[dryrun] the cells ran beside the other phases; the phase "
+        f"waited {waited:.1f} s for them")
+    return dict(losses=meshed["losses"], ms_per_step=ms, cells=cells,
+                waited=waited)
+
+
 def families_smoke_loss(arch: str, device="cuda") -> float:
     """The port's step-1 loss at ``arch``'s smoke config on
     ``FAMILIES_SMOKE``'s weights and batch: the reference's is
@@ -3330,8 +3527,13 @@ def main() -> None:
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+    import atexit
+    import tempfile
+    atexit.register(_stop_children)
 
     phase_build()
+    dry_dir = tempfile.TemporaryDirectory()
+    dry = start_dryrun(dry_dir.name)
     krec = phase_kernels()
     from repro_torch.configs import get_config
     serve_lens = [len(p) for p in
@@ -3367,6 +3569,9 @@ def main() -> None:
     t_phase = time.perf_counter()
     fam = phase_families()
     log(f"[families] the phase in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_dryrun(train, dry)
+    log(f"[dryrun] the phase in {time.perf_counter() - t_phase:.1f} s")
     scale = phase_scale(SCALE_KEYS, SCALE_TIMED_ROUNDS)
     scale4 = phase_scale4(SCALE4_KEYS)
 

@@ -111,13 +111,25 @@ def save_pytree(tree, path: str) -> None:
     _write(flatten(tree), path)
 
 
-def restore_pytree(template, path: str):
+def restore_pytree(template, path: str, shardings=None):
     """Restore into ``template``'s structure: each leaf takes the
-    template leaf's dtype (and, for a tensor, its device)."""
+    template leaf's dtype (and, for a tensor, its device). ``shardings``
+    (nested dicts as the template's, whose leaves are ``(mesh,
+    placements)``) lays every restored tensor out on a mesh with
+    ``distribute_tensor``: the elastic re-layout, onto whatever mesh the
+    run now has."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     with np.load(path) as data:
-        return _restore(template, data, "")
+        tree = _restore(template, data, "")
+    return tree if shardings is None else _distribute(tree, shardings)
+
+
+def _distribute(tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _distribute(v, shardings[k]) for k, v in tree.items()}
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(tree, *shardings)
 
 
 class CheckpointManager:

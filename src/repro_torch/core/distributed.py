@@ -29,7 +29,9 @@ is the concatenation, in source order, of every source's bucket for
 ``d``. ``make_dili_round_hostroute`` skips the exchange and returns the
 raw outboxes, for the host-routed path (the reliable transport under a
 nemesis). ``stack_states``/``unstack_states`` move between per-shard
-states and the stacked layout the rounds take.
+states and the stacked layout the rounds take; ``service_input_specs``
+gives that layout's shapes on meta for the dry-run
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -281,3 +283,25 @@ def make_dili_round_hostroute(cfg: DiLiConfig, *, timer=None):
                        *lanes, stats, ent_hits)
 
     return rnd
+
+
+def service_input_specs(cfg: DiLiConfig, num_shards: int, in_cap: int):
+    """Meta-tensor stand-ins of an SPMD round's arguments for the dry-run
+    (no allocation): the states and background tables stacked over
+    ``num_shards``, the inbox ``[S, in_cap, FIELDS]`` and the client feed
+    ``[S, batch_size, FIELDS]``, int32."""
+    from .types import init_shard
+    proto_state = init_shard(cfg, 0, device="meta")
+    proto_bg = B.init_bg_table(cfg, device="meta")
+
+    def stackit(tree):
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(stackit(x) for x in tree))
+        return tree.new_empty((num_shards,) + tuple(tree.shape))
+
+    meta = torch.device("meta")
+    inbox = torch.empty((num_shards, in_cap, M.FIELDS), dtype=torch.int32,
+                        device=meta)
+    client = torch.empty((num_shards, cfg.batch_size, M.FIELDS),
+                         dtype=torch.int32, device=meta)
+    return stackit(proto_state), stackit(proto_bg), inbox, client

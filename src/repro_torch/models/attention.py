@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.actctx import constrain
 from .layers import apply_rope
 
 NEG_INF = -1e30
@@ -93,6 +94,11 @@ def qkv_proj(params, x, cfg, positions):
         q = q + params.bq
         k = k + params.bk
         v = v + params.bv
+    # DTensor cannot view uneven head shards as heads, nor flatten the
+    # batch with a sharded head dim in the einsums below: on a mesh this
+    # role moves the model sharding off the heads first
+    q, k, v = (constrain(q, "attn_heads"), constrain(k, "attn_heads"),
+               constrain(v, "attn_heads"))
     q = apply_rope(q.reshape(b, t, h, hd), positions, cfg.rope_theta)
     k = apply_rope(k.reshape(b, t, kh, hd), positions, cfg.rope_theta)
     return q, k, v.reshape(b, t, kh, hd)
@@ -135,7 +141,9 @@ def attention_block(params, x, cfg, *, positions, kv_cache=None,
                                  x.dtype)
             else:
                 kf, vf = new_cache["k"], new_cache["v"]
-            out = decode_attention(q, kf, vf, cache_len + 1)
+            out = decode_attention(q, constrain(kf, "attn_heads"),
+                                   constrain(vf, "attn_heads"),
+                                   cache_len + 1)
         else:  # prefill: write the whole prefix
             new_cache = {}
             for n, c in kv_cache.items():
@@ -144,5 +152,5 @@ def attention_block(params, x, cfg, *, positions, kv_cache=None,
                 new_cache[n] = c
             out = causal_attention(q, k, v, q_chunk=cfg.attn_q_chunk)
 
-    out = out.reshape(b, t, -1) @ params.wo
+    out = constrain(out.reshape(b, t, -1), "attn_heads") @ params.wo
     return out, new_cache

@@ -11,8 +11,10 @@ Every scatter writes distinct rows, and the combine sums over k in a
 fixed order, so the forward and backward passes are free of
 floating-point atomics (the reference *adds* a dropped slot's zero row
 into slot E·C-1; here dropped slots go to a spare row E·C that is cut
-off, and read their zero output from it). The reference's sharding
-hints (``constrain``) are the identity on one card.
+off, and read their zero output from it). The sharding hints
+(``constrain``: ``moe_predispatch`` then ``moe_dispatch`` on the dispatch
+buffer, the reverse on the experts' output) sit where the reference's do
+and are the identity on one card.
 
 Aux losses: load balancing (Switch) and the router z-loss.
 """
@@ -20,6 +22,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..runtime.actctx import constrain, local_rows
 
 
 def _take(x, idx):
@@ -33,6 +37,20 @@ def _put(rows, idx, n):
     buf = rows.new_zeros((rows.shape[0], n, rows.shape[-1]))
     return buf.scatter(1, idx[..., None].expand(-1, -1, rows.shape[-1]),
                        rows)
+
+
+def _route(flat_e, e: int, cap: int):
+    """Each row's routed slots [B, T·k] stably sorted by expert: (order,
+    slot in the [E·C (+1 spare)] buffer, kept)."""
+    n = flat_e.shape[1]
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    first = torch.searchsorted(sorted_e, torch.arange(
+        e, device=flat_e.device).expand(flat_e.shape[0], e).contiguous())
+    pos_in_e = torch.arange(n, device=flat_e.device)[None, :] - \
+        torch.gather(first, 1, sorted_e)
+    keep = pos_in_e < cap
+    return order, torch.where(keep, sorted_e * cap + pos_in_e, e * cap), keep
 
 
 def moe_ffn(params, x, cfg):
@@ -56,15 +74,9 @@ def moe_ffn(params, x, cfg):
 
     # ---- capacity-bounded sort dispatch, per batch row
     cap = max(int(t * k * m.capacity_factor / e), 8)
-    flat_e = top_e.reshape(b, t * k)
-    order = torch.argsort(flat_e, dim=1, stable=True)
-    sorted_e = torch.gather(flat_e, 1, order)
-    first = torch.searchsorted(
-        sorted_e, torch.arange(e, device=x.device).expand(b, e).contiguous())
-    pos_in_e = torch.arange(t * k, device=x.device)[None, :] - \
-        torch.gather(first, 1, sorted_e)
-    keep = pos_in_e < cap
-    slot = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
+    order, slot, keep = local_rows(
+        lambda fe: _route(fe, e, cap), "moe_route",
+        (top_e.reshape(b, t * k),))
 
     # slot j of the sorted order holds token order[j] // k: repeat each
     # token k times and permute (a gather without repeated rows)
@@ -72,11 +84,17 @@ def moe_ffn(params, x, cfg):
     gathered = torch.where(keep[..., None], _take(x_rep, order), 0)
     dispatched = _put(gathered.to(x.dtype), slot, e * cap + 1)
     dispatched = dispatched[:, :e * cap].reshape(b, e, cap, d)
+    dispatched = constrain(dispatched, "moe_predispatch")
+    dispatched = constrain(dispatched, "moe_dispatch")
 
     # ---- expert FFN (einsum over per-expert weights)
     h = F.silu(torch.einsum("becd,edf->becf", dispatched, params.w_gate))
     h = h * torch.einsum("becd,edf->becf", dispatched, params.w_up)
-    out_e = torch.einsum("becf,efd->becd", h, params.w_down)
+    # (contiguous: an unevenly sharded DTensor's local views need it)
+    out_e = torch.einsum("becf,efd->becd", h.contiguous(), params.w_down)
+    out_e = constrain(out_e, "moe_dispatch")
+    # back to data-only before the token-order combine gather
+    out_e = constrain(out_e, "moe_predispatch")
     out_flat = torch.cat([out_e.reshape(b, e * cap, d),
                           out_e.new_zeros((b, 1, d))], dim=1)
 

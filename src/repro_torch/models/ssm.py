@@ -8,16 +8,22 @@ each chunk runs under ``torch.utils.checkpoint`` when gradients are on
 one chunk's states, not the whole sequence's. Inside a chunk the
 recurrence is a Python loop over the steps, a few small launches each
 (``_mamba1_step`` / ``_mamba2_step``, which the decode step runs once):
-``T`` steps per layer. The blocks take their weights as attributes of
-``params`` (``models.transformer.Mamba1`` / ``Mamba2``).
+``T`` steps per layer. On a mesh, everything between a block's two
+projections runs on each rank's batch rows (``actctx.local_rows``):
+DTensor has no sharding rules for the step loop. The blocks take their
+weights as attributes of ``params`` (``models.transformer.Mamba1`` /
+``Mamba2``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..runtime.actctx import local_rows
 
 
 def dt_rank(cfg) -> int:
@@ -86,36 +92,51 @@ def mamba1_scan(dt, a_log, bmat, cmat, x, h0, chunk: int):
                     (dt, bmat, cmat, x), chunk)
 
 
-def mamba1_block(params, x, cfg, *, state=None, decode=False):
-    """x: [B, T, D]. state: dict(conv, ssm) or None. -> (out, new_state)."""
+def _mamba1_mix(xz, conv_state, h0, conv_w, conv_b, x_bc, dt_proj,
+                dt_bias, a_log, d_skip, *, cfg, decode):
+    """Mamba1 between its two projections: xz [B, T, 2·di] -> (gated y
+    [B, T, di], new conv state, new SSM state)."""
     s = cfg.ssm
-    b = x.shape[0]
+    b = xz.shape[0]
     di = s.expand * cfg.d_model
     r = dt_rank(cfg)
 
-    xs, z = torch.chunk(x @ params.in_proj, 2, dim=-1)      # [B,T,di]
-    conv_state = state["conv"] if state is not None else None
-    xs, new_conv = _causal_conv(xs, params.conv_w, params.conv_b,
-                                conv_state)
+    xs, z = torch.chunk(xz, 2, dim=-1)                      # [B,T,di]
+    xs, new_conv = _causal_conv(xs, conv_w, conv_b, conv_state)
     xs = F.silu(xs)
 
-    dt_in, bmat, cmat = torch.split(xs @ params.x_bc, [r, s.state, s.state],
+    dt_in, bmat, cmat = torch.split(xs @ x_bc, [r, s.state, s.state],
                                     dim=-1)
-    dt = F.softplus(dt_in @ params.dt_proj + params.dt_bias).float()
+    dt = F.softplus(dt_in @ dt_proj + dt_bias).float()
     bmat, cmat, xf = bmat.float(), cmat.float(), xs.float()
 
-    h0 = (state["ssm"] if state is not None
-          else x.new_zeros((b, di, s.state), dtype=torch.float32))
+    if h0 is None:
+        h0 = xz.new_zeros((b, di, s.state), dtype=torch.float32)
     if decode:
-        h_t, y = _mamba1_step(-torch.exp(params.a_log), h0, dt[:, 0],
+        h_t, y = _mamba1_step(-torch.exp(a_log), h0, dt[:, 0],
                               bmat[:, 0], cmat[:, 0], xf[:, 0])
         y = y[:, None]
     else:
-        y, h_t = mamba1_scan(dt, params.a_log, bmat, cmat, xf, h0,
-                             cfg.ssm_chunk)
-    y = y + params.d_skip * xf
-    out = (y.to(x.dtype) * F.silu(z)) @ params.out_proj
-    return out, {"conv": new_conv, "ssm": h_t}
+        y, h_t = mamba1_scan(dt, a_log, bmat, cmat, xf, h0, cfg.ssm_chunk)
+    y = y + d_skip * xf
+    return y.to(xz.dtype) * F.silu(z), new_conv, h_t
+
+
+def _states(state):
+    return (None, None) if state is None else (state["conv"], state["ssm"])
+
+
+def mamba1_block(params, x, cfg, *, state=None, decode=False):
+    """x: [B, T, D]. state: dict(conv, ssm) or None. -> (out, new_state).
+    The mixer runs row by row on a mesh (``actctx.local_rows``, role
+    ``ssm_scan``): DTensor has no sharding rules for its step loop."""
+    p = params
+    y, new_conv, h_t = local_rows(
+        functools.partial(_mamba1_mix, cfg=cfg, decode=decode), "ssm_scan",
+        (x @ p.in_proj, *_states(state)),
+        (p.conv_w, p.conv_b, p.x_bc, p.dt_proj, p.dt_bias, p.a_log,
+         p.d_skip))
+    return y @ p.out_proj, {"conv": new_conv, "ssm": h_t}
 
 
 # ------------------------------------------------------------- Mamba2 / SSD
@@ -139,37 +160,46 @@ def mamba2_scan(dt, a_log, bmat, cmat, x, h0, chunk: int):
                     (dt, bmat, cmat, x), chunk)
 
 
-def mamba2_block(params, x, cfg, *, state=None, decode=False):
+def _mamba2_mix(zxd, conv_state, h0, conv_w, conv_b, dt_bias, a_log,
+                d_skip, norm_scale, *, cfg, decode):
+    """Mamba2 between its two projections: zxd [B, T, 2·di + 2N + H] ->
+    (gated, normed y [B, T, di], new conv state, new SSM state)."""
     s = cfg.ssm
-    b, t, _ = x.shape
+    b, t, _ = zxd.shape
     di = s.expand * cfg.d_model
     nh = di // s.head_dim
 
-    z, xbc, dt_in = torch.split(x @ params.in_proj,
-                                [di, di + 2 * s.state, nh], dim=-1)
-    conv_state = state["conv"] if state is not None else None
-    xbc, new_conv = _causal_conv(xbc, params.conv_w, params.conv_b,
-                                 conv_state)
+    z, xbc, dt_in = torch.split(zxd, [di, di + 2 * s.state, nh], dim=-1)
+    xbc, new_conv = _causal_conv(xbc, conv_w, conv_b, conv_state)
     xs, bmat, cmat = torch.split(F.silu(xbc), [di, s.state, s.state],
                                  dim=-1)
-    dt = F.softplus(dt_in.float() + params.dt_bias)
+    dt = F.softplus(dt_in.float() + dt_bias)
     xh = xs.reshape(b, t, nh, s.head_dim).float()
     bmat, cmat = bmat.float(), cmat.float()
 
-    h0 = (state["ssm"] if state is not None
-          else x.new_zeros((b, nh, s.head_dim, s.state),
-                           dtype=torch.float32))
+    if h0 is None:
+        h0 = zxd.new_zeros((b, nh, s.head_dim, s.state),
+                           dtype=torch.float32)
     if decode:
-        h_t, y = _mamba2_step(-torch.exp(params.a_log), h0, dt[:, 0],
+        h_t, y = _mamba2_step(-torch.exp(a_log), h0, dt[:, 0],
                               bmat[:, 0], cmat[:, 0], xh[:, 0])
         y = y[:, None]
     else:
-        y, h_t = mamba2_scan(dt, params.a_log, bmat, cmat, xh, h0,
-                             cfg.ssm_chunk)
-    y = y + params.d_skip[:, None] * xh
-    y = y.reshape(b, t, di).to(x.dtype)
+        y, h_t = mamba2_scan(dt, a_log, bmat, cmat, xh, h0, cfg.ssm_chunk)
+    y = y + d_skip[:, None] * xh
+    y = y.reshape(b, t, di).to(zxd.dtype)
     # gated RMSNorm (Mamba2)
     y = (y * F.silu(z)).float()
     y = (y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + 1e-6)
-         ).to(x.dtype) * params.norm_scale
-    return y @ params.out_proj, {"conv": new_conv, "ssm": h_t}
+         ).to(zxd.dtype) * norm_scale
+    return y, new_conv, h_t
+
+
+def mamba2_block(params, x, cfg, *, state=None, decode=False):
+    """As ``mamba1_block``, for the Mamba2 (SSD) mixer."""
+    p = params
+    y, new_conv, h_t = local_rows(
+        functools.partial(_mamba2_mix, cfg=cfg, decode=decode), "ssm_scan",
+        (x @ p.in_proj, *_states(state)),
+        (p.conv_w, p.conv_b, p.dt_bias, p.a_log, p.d_skip, p.norm_scale))
+    return y @ p.out_proj, {"conv": new_conv, "ssm": h_t}

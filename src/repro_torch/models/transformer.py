@@ -17,9 +17,11 @@ without tied embeddings and, for the hybrid family, ``shared`` (a
 weights keep its layout (``x @ w``, w is [in, out]), so ``convert.py``
 carries the reference's parameter tree across unchanged. The layers run
 one after another in Python (the reference's ``lax.scan`` over stacked
-layers is a compile-time device PyTorch has no need for), and the
-reference's ``runtime.actctx.constrain`` sharding hint is the identity on
-one card. ``forward_train`` keeps ``cfg.remat``: each layer (each group
+layers is a compile-time device PyTorch has no need for). The
+``runtime.actctx.constrain`` hints sit where the reference's do (the
+hidden state after the embedding and after each layer or hybrid group);
+they redistribute DTensors under a bound role and are the identity on one
+card. ``forward_train`` keeps ``cfg.remat``: each layer (each group
 for the hybrid family) runs under ``torch.utils.checkpoint``
 (non-reentrant), so the backward pass recomputes it instead of holding
 its activations.
@@ -32,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.types import resolve_device
+from ..runtime.actctx import constrain
 from .attention import attention_block
 from .config import ArchConfig
 from .layers import cross_entropy, init_dense, rms_norm, swiglu
@@ -139,6 +142,15 @@ class Mamba2(nn.Module):
         self.out_proj = _weight((di, d), dtype, device)
 
 
+def _norm(h, scale, cfg: ArchConfig):
+    """RMSNorm of a sub-layer's input, then the ``layer_in`` layout (a
+    sequence-parallel hidden state is gathered over the sequence before
+    the projections: DTensor will not flatten a sharded sequence into a
+    matmul's rows); a sub-layer's output goes back through
+    ``layer_out``."""
+    return constrain(rms_norm(h, scale, cfg.norm_eps), "layer_in")
+
+
 class DenseBlock(nn.Module):
     """[RMSNorm -> GQA attn] + [RMSNorm -> SwiGLU, or the MoE FFN for the
     moe family]."""
@@ -158,16 +170,16 @@ class DenseBlock(nn.Module):
         """-> (h, new_kv, aux): ``aux`` holds the MoE losses, or is
         empty."""
         x, new_kv = attention_block(
-            self.attn, rms_norm(h, self.ln1, cfg.norm_eps), cfg,
+            self.attn, _norm(h, self.ln1, cfg), cfg,
             positions=positions, kv_cache=kv, cache_len=cache_len,
             decode=decode)
-        h = h + x
-        hn = rms_norm(h, self.ln2, cfg.norm_eps)
+        h = h + constrain(x, "layer_out")
+        hn = _norm(h, self.ln2, cfg)
         if hasattr(self, "moe"):
             x, aux = moe_ffn(self.moe, hn, cfg)
         else:
             x, aux = self.mlp(hn), {}
-        return h + x, new_kv, aux
+        return h + constrain(x, "layer_out"), new_kv, aux
 
 
 class SSMBlock(nn.Module):
@@ -181,9 +193,9 @@ class SSMBlock(nn.Module):
 
     def forward(self, h, cfg: ArchConfig, state=None, decode=False):
         fn = mamba1_block if cfg.ssm.version == 1 else mamba2_block
-        x, new_state = fn(self.mamba, rms_norm(h, self.ln1, cfg.norm_eps),
+        x, new_state = fn(self.mamba, _norm(h, self.ln1, cfg),
                           cfg, state=state, decode=decode)
-        return h + x, new_state
+        return h + constrain(x, "layer_out"), new_state
 
 
 class LM(nn.Module):
@@ -217,9 +229,12 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, dtype=torch.float32,
     each matrix Normal(0, 1/fan_in), the embedding Normal(0, 1/d_model)
     (keeps tied-head logits O(1) at init), norm scales 1, biases 0, the
     SSM blocks' fixed inits — the reference's distribution, not its
-    draws."""
+    draws. On ``device="meta"`` the model comes back with no draw: its
+    shapes and dtypes alone, the port's ``jax.eval_shape(init_params)``."""
     model = LM(cfg, dtype=dtype, device=device)
     dev = model.embed.device
+    if dev.type == "meta":
+        return model
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     for name, w in model.named_parameters():
@@ -327,7 +342,7 @@ def forward_serve(params: LM, cfg: ArchConfig, batch, cache, cache_len, *,
     if cfg.modality == "audio_stub":
         h = batch["frame_embeds"]
     elif cfg.modality == "vision_stub" and not decode:
-        tok = params.embed[batch["tokens"]]
+        tok = constrain(params.embed[batch["tokens"]], "embed")
         h = torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
     else:
         h = params.embed[batch["tokens"]]
@@ -344,7 +359,8 @@ def forward_serve(params: LM, cfg: ArchConfig, batch, cache, cache_len, *,
     else:
         h, new_cache = _hybrid_step(params, cfg, h, positions, cache,
                                     cache_len, decode)
-    h = rms_norm(h[:, -1:], params.final_norm, cfg.norm_eps)
+    h = rms_norm(constrain(h, "layer_in")[:, -1:], params.final_norm,
+                 cfg.norm_eps)
     return (h @ params.head(cfg))[:, 0], new_cache
 
 
@@ -361,6 +377,7 @@ def _embed_input(params: LM, cfg: ArchConfig, batch):
                                   device=h.device)
     h = F.embedding(batch["tokens"], params.embed)
     if cfg.modality == "vision_stub":
+        h = constrain(h, "embed")
         patches = batch["patch_embeds"]
         h = torch.cat([patches.to(h.dtype), h], dim=1)
         pos = torch.arange(tgt.shape[1], device=h.device)
@@ -383,7 +400,8 @@ def _backbone_train(params: LM, cfg: ArchConfig, h, positions):
     if cfg.family in ATTN_FAMILIES:
         def layer(blk, x):
             x, _, a = blk(x, cfg, positions)
-            return x, a.get("moe_aux", zero), a.get("moe_z", zero)
+            return (constrain(x, "hidden"), a.get("moe_aux", zero),
+                    a.get("moe_z", zero))
 
         for blk in params.blocks:
             h, a, b = _remat(cfg, layer, blk, h)
@@ -392,7 +410,8 @@ def _backbone_train(params: LM, cfg: ArchConfig, h, positions):
 
     if cfg.family == "ssm":
         for blk in params.blocks:
-            h = _remat(cfg, lambda b, x: b(x, cfg)[0], blk, h)
+            h = _remat(cfg, lambda b, x: constrain(b(x, cfg)[0], "hidden"),
+                       blk, h)
         return h, aux, z
 
     # hybrid: groups of Mamba2 blocks, each followed by the shared block
@@ -402,7 +421,7 @@ def _backbone_train(params: LM, cfg: ArchConfig, h, positions):
     def group(g, x):
         for blk in params.blocks[g * period:(g + 1) * period]:
             x = blk(x, cfg)[0]
-        return params.shared(x, cfg, positions)[0]
+        return constrain(params.shared(x, cfg, positions)[0], "hidden")
 
     for g in range(n_groups(cfg)):
         h = _remat(cfg, group, g, h)
@@ -421,7 +440,8 @@ def _chunked_loss(params: LM, cfg: ArchConfig, h, targets, mask):
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(s // c):
         sl = slice(i * c, (i + 1) * c)
-        ls = cross_entropy(h[:, sl] @ params.head(cfg), targets[:, sl])
+        ls = cross_entropy(constrain(h[:, sl] @ params.head(cfg),
+                                     "logits"), targets[:, sl])
         ms = mask[:, sl].float()
         tot = tot + (ls * ms).sum()
         cnt = cnt + ms.sum()
@@ -436,9 +456,10 @@ def forward_train(params: LM, cfg: ArchConfig, batch):
     MoE balance loss plus 1e-3 x its z-loss, summed over the layers;
     gradients flow to every parameter that requires them."""
     h, targets, mask = _embed_input(params, cfg, batch)
+    h = constrain(h, "hidden")
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, moe_aux, moe_z = _backbone_train(params, cfg, h, positions)
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    h = _norm(h, params.final_norm, cfg)
     loss = _chunked_loss(params, cfg, h, targets, mask)
     total = loss + 0.01 * moe_aux + 1e-3 * moe_z
     return total, {"ce_loss": loss, "moe_aux": moe_aux, "moe_z": moe_z}

@@ -1,5 +1,4 @@
-"""Fault-tolerant training runtime (the reference's ``runtime/train.py``,
-one device, no mesh).
+"""Fault-tolerant training runtime (the reference's ``runtime/train.py``).
 
 ``build_train_step`` returns the step, for every model family:
 ``forward_train``, the backward pass through autograd, and
@@ -15,8 +14,8 @@ the MoE losses ``moe_aux`` and ``moe_z`` (zero outside the moe family).
   * simulated failures — ``failure_hook`` lets tests kill the loop at an
     arbitrary step and assert recovery.
 
-The reference's mesh path (in/out shardings for the dry-run) has no
-counterpart on one device.
+``build_train_step(mesh=)`` is the reference's mesh path: the same step
+on DTensors laid out by ``runtime.sharding``.
 """
 from __future__ import annotations
 
@@ -32,11 +31,19 @@ from ..checkpoint import CheckpointManager
 from ..models import transformer as T
 from ..models.config import ArchConfig, ShapeCell
 from ..optim import AdamWConfig, adamw_init, adamw_update
+from . import sharding as S
 
 
-def build_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig):
+def build_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh=None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``;
-    params and state are updated in place, metrics are device scalars."""
+    params and state are updated in place, metrics are device scalars.
+
+    With a ``DeviceMesh`` (``launch.mesh.make_host_mesh``, or any mesh
+    with ``data``/``model`` axes) the step first lays the parameters and
+    the AdamW state out by ``runtime.sharding``'s rules (in place, as
+    DTensors, on its first call) and the batch over the data axes, then
+    runs the same step on DTensors; its metrics come back replicated as
+    plain tensors."""
 
     def step(params, opt_state, batch):
         params.requires_grad_(True)
@@ -51,7 +58,26 @@ def build_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig):
         return params, opt_state, {"loss": loss.detach(), **{
             k: v.detach() for k, v in metrics.items()}, **opt_metrics}
 
-    return step
+    if mesh is None:
+        return step
+
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def mesh_step(params, opt_state, batch):
+        if not isinstance(params.embed, DTensor):      # first call
+            pshard = S.param_shardings(params, mesh)
+            S.distribute_params_(params, mesh, pshard)
+            opt_state.update(S.distribute_opt_state(opt_state, pshard,
+                                                    mesh))
+        batch = S.distribute(batch, S.batch_shardings(batch, mesh), mesh)
+        with implicit_replication():
+            params, opt_state, metrics = step(params, opt_state, batch)
+        return params, opt_state, {
+            k: v.full_tensor() if isinstance(v, DTensor) else v
+            for k, v in metrics.items()}
+
+    return mesh_step
 
 
 @dataclasses.dataclass

@@ -245,6 +245,8 @@ def test_c4_package_imports_neither_jax_nor_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
+        "import torch.distributed as dist\n"
+        "bad += ['a process group'] if dist.is_initialized() else []\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -252,14 +254,18 @@ def test_c4_package_imports_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
-    # the chip smoke script imports nothing of JAX or the reference either
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
-             for a in n.names]
-    names += [n.module or "" for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom)]
-    assert not [m for m in names
-                if m.split(".")[0] in ("jax", "jaxlib", "repro")], names
+    # the chip smoke script and the port's examples import nothing of JAX
+    # or the reference either
+    for path in [ROOT / "chip_smoke.py",
+                 *sorted((ROOT / "examples").glob("torch_*.py"))]:
+        tree = ast.parse(path.read_text())
+        names = [a.name for n in ast.walk(tree)
+                 if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module or "" for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom)]
+        assert not [m for m in names if m.split(".")[0] in
+                    ("jax", "jaxlib", "repro")], (path.name, names)
+    assert len(list((ROOT / "examples").glob("torch_*.py"))) == 3
 
 
 def test_c4_entry_points_default_to_cuda():
