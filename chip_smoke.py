@@ -762,6 +762,60 @@ def make_backend(backend: str, cfg, **kw):
     raise ValueError(f"unknown backend {backend!r}")
 
 
+def spmd_cards(num_shards: int = 4) -> list:
+    """The cards ``ShardMapBackend(device="cuda")`` places ``num_shards``
+    servers on, in shard order (repeats where servers share a card)."""
+    from repro_torch.core.distributed import placement
+    return placement(bench_cfg(num_shards=num_shards), "cuda")
+
+
+def sync_cards(devices) -> None:
+    """Wait for each card in ``devices``."""
+    import torch
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
+def reset_card_peaks(devices) -> None:
+    import torch
+    torch.cuda.init()   # the allocator keeps per-card stats once CUDA is up
+    for d in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def card_peaks_mib(devices) -> dict:
+    """The peak allocated memory of each card in ``devices`` since the
+    last ``reset_card_peaks``, in MiB."""
+    import torch
+    return {str(d): round(torch.cuda.max_memory_allocated(d) / 2**20, 1)
+            for d in dict.fromkeys(devices)}
+
+
+def placement_note(backend) -> str:
+    """The card count and ``ShardMapBackend``'s placement, and whether
+    the servers spread over cards or share one."""
+    import torch
+    place = [str(d) for d in backend.placement]
+    used = sorted(set(place))
+    where = (f"the {len(place)} servers spread over {len(used)} cards"
+             if len(used) > 1 else
+             f"all {len(place)} servers share {used[0]}")
+    return (f"{torch.cuda.device_count()} card(s) visible, placement "
+            f"{place}: {where}")
+
+
+def exchange_bytes(backend) -> tuple:
+    """Bytes one routed round's exchange writes into the inboxes (every
+    source's ``cap_pair``-row bucket for every destination), and the part
+    of them that crosses between cards: computed from the placement and
+    ``cap_pair``, not measured."""
+    from repro_torch.core import messages as M
+    pl = backend.placement
+    bucket = backend.cap_pair * M.FIELDS * 4
+    cross = sum(a != b for a in pl for b in pl)
+    return len(pl) ** 2 * bucket, cross * bucket
+
+
 def round_no(backend) -> int:
     """The rounds a backend has run."""
     return backend.cluster.round_no if hasattr(backend, "cluster") \
@@ -2046,7 +2100,6 @@ def fig3b4_run(backend, timer) -> dict:
     counts, the seconds of load + settle and of the mix, the per-round
     breakdowns, the pre-pass walk's steps in the mix, and
     ``hybrid_search``'s launches in all and per server."""
-    import torch
     from repro_torch.core import traverse
     from repro_torch.core.balancer import Balancer
     from repro_torch.kernels import ops as K
@@ -2061,7 +2114,7 @@ def fig3b4_run(backend, timer) -> dict:
                       log=ops)
         load_end = backend.stats["rounds"]
         settle(backend, bal)
-        torch.cuda.synchronize()
+        timer.synchronize()
         t_set = time.perf_counter() - t0
         settle_end = backend.stats["rounds"]
         bd_settle = breakdown(timer, settle_end)
@@ -2069,7 +2122,7 @@ def fig3b4_run(backend, timer) -> dict:
         steps = traverse.probe_batch.steps
         t0 = time.perf_counter()
         drive_backend(backend, kinds, keys, 64, balancer=bal, log=ops)
-        torch.cuda.synchronize()
+        timer.synchronize()
         dt = time.perf_counter() - t0
         steps = traverse.probe_batch.steps - steps
     check(len(ops) == len(load_kinds) + len(kinds),
@@ -2126,20 +2179,31 @@ def phase_fig3b4() -> dict:
 
 def phase_shardmap4(f3b: dict) -> dict:
     """fig3b4's configuration and workload through the SPMD backend
-    (``ShardMapBackend``: the routed round, buckets exchanged on the card
-    by the Local exchange), with ``Balancer`` and ``drive_backend`` as in
+    (``ShardMapBackend``: the routed round, each server placed on a card
+    of its own while there are cards, and folded onto them in turn when
+    there are fewer; the Local exchange copies each bucket to its
+    destination's card), with ``Balancer`` and ``drive_backend`` as in
     ``[fig3b4]``. The key set agrees with the ops' results, the counts
     equal ``SHARDMAP4_EXPECTED`` and ``hybrid_search`` launches on every
-    server; ops/s and ms per round beside ``[fig3b4]``'s, and the
-    ``bucket`` and ``exchange`` spans per round."""
+    server; ops/s and ms per round beside ``[fig3b4]``'s, the placement,
+    each card's peak memory, and the exchange's bytes per round
+    (computed from the placement) beside the ``bucket`` and ``exchange``
+    spans. The timer synchronizes the cards the servers are placed on."""
     from repro_torch.api import ShardMapBackend
     from repro_torch.timing import PhaseTimer
 
-    timer = PhaseTimer("cuda")
+    cards = spmd_cards()
+    timer = PhaseTimer(cards)
     t0 = time.perf_counter()
+    reset_card_peaks(cards)
     backend = ShardMapBackend(bench_cfg(num_shards=4), device="cuda",
                               timer=timer)
+    check(backend.placement == cards,
+          f"shardmap4: placement {backend.placement} != {cards}")
+    log(f"[shardmap4] {placement_note(backend)}")
     r = fig3b4_run(backend, timer)
+    peaks = card_peaks_mib(cards)
+    xbytes, xcross = exchange_bytes(backend)
     counts, per_server, dt = r["counts"], r["per_server"], r["dt"]
     check_against_results("shardmap4", r["ops"], backend.all_keys())
     check(counts == SHARDMAP4_EXPECTED,
@@ -2148,7 +2212,8 @@ def phase_shardmap4(f3b: dict) -> dict:
     mix_rounds = counts["mix_rounds"]
     bd = r["bd"]
     ms = 1e3 * dt / mix_rounds
-    log(f"[shardmap4] fig3b4 through ShardMapBackend (Local exchange): "
+    log(f"[shardmap4] fig3b4 through ShardMapBackend (placed, Local "
+        f"exchange): "
         f"{r['n_mix'] / dt:.1f} ops/s over the mix ({mix_rounds} rounds, "
         f"{dt:.3f} s, {ms:.3f} ms/round) against [fig3b4]'s "
         f"{f3b['ops_per_s']:.1f} ops/s, {f3b['ms_per_round']:.3f} "
@@ -2161,9 +2226,15 @@ def phase_shardmap4(f3b: dict) -> dict:
         f"{bd.get('bucket', 0.0):.4f}, exchange "
         f"{bd.get('exchange', 0.0):.4f}; all {json.dumps(bd)}; "
         f"{walk_ms_per_step(timer, r['walk_steps'], mix_rounds)}")
+    log(f"[shardmap4] exchange per round: {xbytes} bytes into the inboxes, "
+        f"{xcross} of them between cards (computed, not measured), "
+        f"{bd.get('exchange', 0.0):.4f} ms; peak memory per card (MiB) "
+        f"{json.dumps(peaks)}")
     return dict(ops_per_s=r["n_mix"] / dt, ms_per_round=ms,
                 launches=r["launches"], per_server=per_server, breakdown=bd,
-                counts=counts)
+                counts=counts, placement=[str(d) for d in backend.placement],
+                peaks_mib=peaks, exchange_bytes=xbytes,
+                exchange_cross_bytes=xcross)
 
 
 def phase_scale4(n_keys: int) -> dict:
@@ -2441,13 +2512,15 @@ def phase_shardmap_faults() -> dict:
     ``SHARDMAP_NEMESIS`` (the reference's N5) and ``SHARDMAP_CRASH``
     (server 1 killed at round 40 and recovered from its WAL and snapshot
     at 80, in a temporary directory) through ``nemesis_differential`` at
-    the harness's shardmap size. Each passes the sequential oracle and
-    its round trace digests to the reference's."""
+    the harness's shardmap size, the servers placed as in
+    ``[shardmap4]``. Each passes the sequential oracle and its round
+    trace digests to the reference's. The host routes the outboxes
+    through the transport, so no bucket crosses between cards."""
     import tempfile
-    import torch
     from repro_torch.core.durability import Durability
     from repro_torch.core.net import NemesisConfig, trace_digest
 
+    cards = spmd_cards()
     runs = {}
     for name, e, want in (("nemesis", SHARDMAP_NEMESIS,
                            SHARDMAP_NEMESIS_DIGEST),
@@ -2457,13 +2530,16 @@ def phase_shardmap_faults() -> dict:
             rec = _TimedRecovery(dur)
             t0 = time.perf_counter()
             crashes = len(e["config"].get("crashes", ()))
+            reset_card_peaks(cards)
             res = nemesis_differential(
                 e["seed"], NemesisConfig.from_dict(e["config"]),
                 n_ops=e["n_ops"], backend="shardmap", device="cuda",
                 durability=dur if crashes else None)
-            torch.cuda.synchronize()
+            sync_cards(cards)
             dt = time.perf_counter() - t0
         what = f"shardmap_{name}"
+        check(res["backend"].placement == cards,
+              f"{what}: placement {res['backend'].placement} != {cards}")
         check_differential(what, res)
         digest = trace_digest(res["trace"])
         check(digest == want, f"{what}: round-trace digest {digest} != "
@@ -2477,9 +2553,13 @@ def phase_shardmap_faults() -> dict:
             f"trace digest equals the reference's; recovery ms "
             f"{[round(x, 1) for x in rec.ms]}; transport "
             f"{res['net_stats']}, wire {res['nemesis_stats']}")
+        peaks = card_peaks_mib(cards)
+        log(f"[shardmap_faults] {name}: {placement_note(res['backend'])}; "
+            f"exchange host-routed, 0 bytes between cards; peak memory "
+            f"per card (MiB) {json.dumps(peaks)}")
         runs[name] = dict(rounds=res["rounds"], seconds=dt,
                           ms_per_round=1e3 * dt / res["rounds"],
-                          recovery_ms=rec.ms)
+                          recovery_ms=rec.ms, peaks_mib=peaks)
     return runs
 
 
@@ -3637,7 +3717,8 @@ def main() -> None:
         f"{mship['rounds']}, nemesis4 {nem4['rounds']} (mix "
         f"{nem4['ms_per_round']:.3f} ms/round, recovery "
         f"{nem4['recovery_ms']:.1f} ms)")
-    log(f"[spmd] shardmap4 {smap['ms_per_round']:.3f} ms/round, "
+    log(f"[spmd] shardmap4 on {smap['placement']} "
+        f"{smap['ms_per_round']:.3f} ms/round, "
         f"{smap['ops_per_s']:.1f} ops/s against fig3b4's "
         f"{f3b['ms_per_round']:.3f} / {f3b['ops_per_s']:.1f}; "
         f"shardmap_faults nemesis {smf['nemesis']['rounds']} rounds "

@@ -15,15 +15,18 @@ the reliable transport, with ``durability=`` it journals to a WAL (and
 ``CrashPlan``s recover from it), and ``join_shard``/``retire_shard``
 change membership under traffic.
 
-``ShardMapBackend(cfg)`` holds every shard stacked on one device
-(``device="cuda"`` by default; ``device="cpu"`` on a machine without a
-card) and routes with the Local exchange, a transpose of the per-pair
-buckets. One rank per shard over a process group is
-``make_dili_round(cfg, cap_pair, group=...)`` itself.
+``ShardMapBackend(cfg)`` holds each shard on a device of its own, as the
+reference's ``shard_map`` mesh places them (``device="cuda"`` by default:
+shard ``s`` on ``cuda:{s % device_count}``; ``devices=`` lists them one
+per shard; ``device="cpu"`` on a machine without a card), and routes with
+the Local exchange, which copies each bucket to its destination's device.
+One rank per shard over a process group is ``make_dili_round(cfg,
+cap_pair, group=...)`` itself.
 """
 from __future__ import annotations
 
 import contextlib
+import logging
 import tempfile
 from collections import deque
 from typing import Dict, List, Optional, Protocol, Sequence, Tuple
@@ -36,8 +39,8 @@ from ..core import messages as M
 from ..core import range_scan as RS
 from ..core import refs
 from ..core import replica as R
-from ..core.distributed import (make_dili_round, make_dili_round_hostroute,
-                                shard_slice, stack_states)
+from ..core.distributed import (gather_host, make_dili_round,
+                                make_dili_round_hostroute, placement)
 from ..core.durability import Durability, validate_crash_plans, wal
 from ..core.membership import (Membership, epoch_row, moves_targeting,
                                owned_entry_count)
@@ -46,7 +49,9 @@ from ..core.sim import (Cluster, OpIdAllocator, OutboxOverflow, chain_keys,
                         global_keys, make_op_row, materialize_ops,
                         registry_entries, state_sublists)
 from ..core.types import (DiLiConfig, KEY_MAX, KEY_MIN, SH_KEY, ST_KEY,
-                          init_shard, resolve_device, tree_map)
+                          init_shard, on_device, tree_map)
+
+_log = logging.getLogger(__name__)
 
 Completion = Tuple[int, int, int]           # (op_id, result, src_shard)
 RegEntry = Tuple[int, int, int]             # (keymin, keymax, owner)
@@ -279,28 +284,25 @@ class LocalBackend:
 
 
 def _host_tree(tree):
-    """Every leaf of a (stacked) tree on the host, one copy each."""
+    """Every leaf of a tree on the host, one copy each."""
     return tree_map(lambda x: x.detach().cpu(), tree)
 
 
-def _set_slot(stacked, s: int, tree):
-    """A copy of ``stacked`` with shard ``s`` replaced by ``tree``: host
-    snapshots handed out earlier stay views of the old tensors."""
-    def put(col, leaf):
-        col = col.clone()
-        col[s] = leaf.to(col.device)
-        return col
-    return type(stacked)(*(_set_slot(c, s, t) if isinstance(c, tuple)
-                           else put(c, t) for c, t in zip(stacked, tree)))
+def _to(tree, dev: torch.device):
+    """``tree`` with every leaf on ``dev`` (no copy for a leaf already
+    there)."""
+    return tree_map(lambda x: x.to(dev), tree)
 
 
 class ShardMapBackend:
     """The SPMD round as a client backend.
 
-    Every shard is one slot of the stacked state on ``device``; routing
-    is the exchange inside ``make_dili_round``. The host side here only
-    feeds client batches, harvests completions, and keeps the same
-    overflow discipline as the simulator: ``cap_pair`` defaults to
+    Shard ``s``'s state, background table and routed inbox lie on
+    ``placement[s]`` (``core.distributed.placement`` of ``device`` and
+    ``devices``); routing is the exchange inside ``make_dili_round``,
+    which copies each bucket to its destination's device. The host side
+    here only feeds client batches, harvests completions, and keeps the
+    same overflow discipline as the simulator: ``cap_pair`` defaults to
     ``mailbox_cap`` so no per-destination bucket can drop a row without
     the (host-checked) total outbox count exceeding ``mailbox_cap``
     first, which raises ``OutboxOverflow`` exactly like ``Cluster.step``.
@@ -312,12 +314,13 @@ class ShardMapBackend:
     the round traces differ from ``Cluster``'s (whose announcements ride
     the routed wire) and equal the reference ``ShardMapBackend``'s.
 
-    The balance surface works on host snapshots of the stacked state
+    The balance surface works on per-shard host snapshots of the state
     (pulled lazily, invalidated each round); Split/Move/Merge and the
-    replication commands edit one slot of the stacked tables and execute
+    replication commands replace one shard's table or state and execute
     inside the next round like any other background phase. ``timer``, a
-    ``timing.PhaseTimer``, gets ``Cluster``'s spans plus ``bucket`` and
-    ``exchange``.
+    ``timing.PhaseTimer`` (made with the placement, so that its spans wait
+    for every card the shards use), gets ``Cluster``'s spans plus
+    ``bucket`` and ``exchange``.
     """
 
     def __init__(self, cfg: DiLiConfig, *, cap_pair: Optional[int] = None,
@@ -325,9 +328,12 @@ class ShardMapBackend:
                  net_window: int = 4096,
                  key_lo: int = KEY_MIN, key_hi: int = KEY_MAX,
                  initial_shards: Optional[int] = None,
-                 durability=None, device="cuda", timer=None):
+                 durability=None, device="cuda", devices=None,
+                 timer=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.placement = placement(cfg, device, devices)
+        _log.info("ShardMapBackend: %d shards on %s", cfg.num_shards,
+                  [str(d) for d in self.placement])
         self.timer = timer
         self.cap_pair = int(cap_pair if cap_pair is not None
                             else cfg.mailbox_cap)
@@ -344,10 +350,13 @@ class ShardMapBackend:
         # synchronized registry replicas everywhere else — and the
         # membership overlay, so both backends share one lifecycle engine
         boot = Cluster(cfg, seed=seed, key_lo=key_lo, key_hi=key_hi,
-                       initial_shards=initial_shards, device=self.device)
+                       initial_shards=initial_shards,
+                       device=self.placement[0])
         self.membership = boot.membership
         self._mb_logged = 0
-        self._states, self._bgs = stack_states(boot.states, boot.bgs)
+        self._states = [_to(st, d) for st, d in zip(boot.states,
+                                                    self.placement)]
+        self._bgs = [_to(bg, d) for bg, d in zip(boot.bgs, self.placement)]
         # same child-stream layout as Cluster: (delay, nemesis, balancer)
         self.seed = seed
         root = np.random.SeedSequence(seed)
@@ -361,19 +370,20 @@ class ShardMapBackend:
                 cfg.num_shards,
                 Nemesis(nemesis, np.random.default_rng(nemesis_ss)),
                 retransmit_after=retransmit_after, window=net_window)
-            self._rnd = make_dili_round_hostroute(cfg, timer=timer)
+            self._rnd = make_dili_round_hostroute(cfg, timer=timer,
+                                                  placed=True)
             self.in_cap = max(cfg.mailbox_cap * cfg.num_shards,
                               cfg.batch_size * 2)
             self._net_backlog = [np.zeros((0, M.FIELDS), np.int32)
                                  for _ in range(cfg.num_shards)]
         else:
             self._rnd = make_dili_round(cfg, cap_pair=self.cap_pair,
-                                        timer=timer)
+                                        timer=timer, placed=True)
             self.in_cap = cfg.num_shards * self.cap_pair
-            # the routed inbox stays on the device between rounds
-            self._inbox = torch.zeros((cfg.num_shards, self.in_cap,
-                                       M.FIELDS), dtype=torch.int32,
-                                      device=self.device)
+            # each shard's routed inbox stays on its device between rounds
+            self._inbox = [torch.zeros((self.in_cap, M.FIELDS),
+                                       dtype=torch.int32, device=d)
+                           for d in self.placement]
         self._inflight_msgs = 0
         self._queues: List[deque] = [deque() for _ in range(cfg.num_shards)]
         self._ids = OpIdAllocator()
@@ -475,8 +485,8 @@ class ShardMapBackend:
 
     # ------------------------------------------------- membership (§13)
     def join_shard(self, shard: Optional[int] = None) -> int:
-        """Admit a retired slot as a JOINING member. The stacked state
-        keeps its capacity: the slot was stepping empty rounds all along."""
+        """Admit a retired slot as a JOINING member. Its state keeps its
+        capacity: the slot was stepping empty rounds all along."""
         s = self.membership.begin_join(shard)
         self._broadcast_epoch()
         return s
@@ -557,9 +567,9 @@ class ShardMapBackend:
 
     # ------------------------------------------------- crash-restart (§14)
     def _set_shard(self, s: int, state, bg) -> None:
-        """Overwrite slot ``s`` of the stacked state."""
-        self._states = _set_slot(self._states, s, state)
-        self._bgs = _set_slot(self._bgs, s, bg)
+        """Replace shard ``s``'s state and table, on ``placement[s]``."""
+        self._states[s] = _to(state, self.placement[s])
+        self._bgs[s] = _to(bg, self.placement[s])
         self._host_states = None
 
     def _apply_crash_plans(self) -> None:
@@ -579,15 +589,17 @@ class ShardMapBackend:
                 f"crash of shard {s} leaves no active shard — the "
                 f"coordinator for epoch broadcasts must survive")
         self._broadcast_epoch()
+        dev = self.placement[s]
         self._set_shard(s, init_shard(self.cfg, s, peers_mask=0,
-                                      device=self.device),
-                        B.init_bg_table(self.cfg, self.device))
+                                      device=dev),
+                        B.init_bg_table(self.cfg, dev))
         self._net_backlog[s] = np.zeros((0, M.FIELDS), np.int32)
         self.net.crash_shard(s)
 
     def _restart_shard(self, s: int) -> None:
-        rec = self.durability.recover(s, in_cap=self.in_cap,
-                                      device=self.device)
+        with on_device(self.placement[s]):
+            rec = self.durability.recover(s, in_cap=self.in_cap,
+                                          device=self.placement[s])
         self._set_shard(s, rec.state, rec.bg)
         self._net_backlog[s] = rec.backlog
         self.net.restart_shard(s, rec.lanes)
@@ -647,10 +659,11 @@ class ShardMapBackend:
         keyed by registry keymax, drop entries decayed to noise.
         ``rep_hits`` (per-shard replica-served FINDs, [S]) feeds the
         per-shard ``rep_rate_ewma`` the balancer folds into shard load."""
-        hits = ent_hits.cpu().numpy()                       # [S, M]
+        hits = ent_hits.numpy()                             # [S, M]
         ent_rates: Dict[int, int] = {}
         if hits.any():
-            kmax = self._states.registry.keymax.cpu().numpy()   # [S, M]
+            kmax = self._gather([st.registry.keymax
+                                 for st in self._states])       # [S, M]
             for s, e in zip(*np.nonzero(hits)):
                 k = int(kmax[s, e])
                 if k != ST_KEY:
@@ -734,8 +747,8 @@ class ShardMapBackend:
         layout): the client feed consumed, the routed appends,
         completions + bg phases + epoch (replay audit), the post-routing
         lane image; then the periodic snapshot."""
-        phases = self._bgs.phase.cpu().numpy()
-        epochs = self._states.epoch.cpu().numpy()
+        phases = self._gather([bg.phase for bg in self._bgs])
+        epochs = self._gather([st.epoch for st in self._states])
         every = self.durability.config.snapshot_every
         for s in range(self.n):
             if s in down:
@@ -751,8 +764,8 @@ class ShardMapBackend:
                 epoch=int(epochs[s]), lanes=lanes)
             if every > 0 and (self.round_no + 1) % every == 0:
                 self.durability.snapshot_now(
-                    s, self.round_no, shard_slice(self._states, s),
-                    shard_slice(self._bgs, s), self._net_backlog[s], lanes)
+                    s, self.round_no, self._states[s], self._bgs[s],
+                    self._net_backlog[s], lanes)
 
     def step(self) -> List[Completion]:
         if self.net is not None:
@@ -800,26 +813,29 @@ class ShardMapBackend:
                 return False
         elif self._inflight_msgs:
             return False
-        return not bool((self._bgs.phase != B.BG_IDLE).any())
+        return not (self._gather([bg.phase for bg in self._bgs])
+                    != B.BG_IDLE).any()
 
     def registry_entries(self, shard: int = 0) -> List[RegEntry]:
         return registry_entries(self.states[shard])
 
     # ------------------------------------------------------ balance surface
+    def _gather(self, per_shard) -> np.ndarray:
+        """One tensor of every shard, stacked on the host with one copy
+        per device."""
+        return gather_host(per_shard, self.placement).numpy()
+
     @property
     def states(self):
-        """Per-shard host snapshots of the stacked state, pulled once per
-        round."""
+        """Per-shard host snapshots of the state, pulled once per round."""
         if self._host_states is None:
-            host = _host_tree(self._states)
-            self._host_states = [shard_slice(host, s) for s in range(self.n)]
+            self._host_states = [_host_tree(st) for st in self._states]
         return self._host_states
 
     @property
     def bgs(self):
         """Per-shard host copies of the background tables."""
-        host = _host_tree(self._bgs)
-        return [shard_slice(host, s) for s in range(self.n)]
+        return [_host_tree(bg) for bg in self._bgs]
 
     def sublists(self, s: int):
         return state_sublists(self.cfg, self.states, s)
@@ -832,8 +848,8 @@ class ShardMapBackend:
         return items[len(items) // 2][1]
 
     def _queue_bg(self, s: int, fn, cmd: int, *args) -> bool:
-        bg, ok = fn(shard_slice(self._bgs, s), *args)
-        self._bgs = _set_slot(self._bgs, s, bg)
+        bg, ok = fn(self._bgs[s], *args)
+        self._bgs[s] = bg
         if self.durability is not None:
             # host-side BgTable mutation bypasses the inbox — journal it
             # so WAL replay re-queues the command (wal.py KIND_COMMAND)
@@ -857,8 +873,8 @@ class ShardMapBackend:
     def _queue_state(self, s: int, fn, cmd: int, *args) -> bool:
         """Like ``_queue_bg`` but for commands that edit ``ShardState``
         (the replication session table) instead of the BgTable."""
-        st, ok = fn(shard_slice(self._states, s), self.cfg, *args)
-        self._states = _set_slot(self._states, s, st)
+        st, ok = fn(self._states[s], self.cfg, *args)
+        self._states[s] = st
         self._host_states = None
         ok = bool(ok)
         if self.durability is not None:

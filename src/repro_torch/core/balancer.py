@@ -173,8 +173,8 @@ class Balancer:
 
         # per-shard slot budget + per-entry claims of in-flight ops; both
         # are maintained locally as commands are issued this pass. Snapshot
-        # ``cl.bgs`` once: on ShardMapBackend every access pulls the whole
-        # stacked table device-to-host
+        # ``cl.bgs`` once: on ShardMapBackend every access pulls every
+        # shard's table device-to-host
         bgs = cl.bgs
         free = {s: B.free_slots(bgs[s]) for s in routable}
         claimed = {s: B.claimed_keys(bgs[s]) for s in routable}

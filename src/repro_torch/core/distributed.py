@@ -14,9 +14,12 @@ A round is, for every shard (DiLi "server"):
 The exchange has two implementations:
 
   * **Local** (``group=None``, the default): one process holds all S
-    shards stacked on one device, and the exchange is a transpose of the
-    ``[S_src, S_dst, cap_pair, F]`` buckets. This is the one-card
-    deployment: NCCL will not put two ranks on one GPU.
+    shards, each on the device ``placement`` gives it, as the
+    reference's ``shard_map`` mesh holds one shard per device. Shard
+    ``s`` runs and buckets on its device, and the exchange copies each
+    bucket to its destination's device (peer copies between cards, none
+    between shards that share one). With fewer cards than shards the
+    shards fold onto the cards in turn; on one card all of them share it.
   * **Group**: with a ``torch.distributed`` process group of world size
     S, each rank runs its own shard (arguments and results carry a
     leading shard dimension of 1) and the exchange is
@@ -28,15 +31,16 @@ split_axis=0, concat_axis=0)`` lays out the reference's: ``inbox[d]``
 is the concatenation, in source order, of every source's bucket for
 ``d``. ``make_dili_round_hostroute`` skips the exchange and returns the
 raw outboxes, for the host-routed path (the reliable transport under a
-nemesis). ``stack_states``/``unstack_states`` move between per-shard
-states and the stacked layout the rounds take; ``service_input_specs``
-gives that layout's shapes on meta for the dry-run
-(``launch/dryrun.py``).
+nemesis). Both factories take the placed layout (per-shard lists,
+``placed=True``, what ``ShardMapBackend`` holds) or trees stacked over
+the shards on one device; ``stack_states``/``unstack_states`` move
+between the two, and ``service_input_specs`` gives the stacked layout's
+shapes on meta for the dry-run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,17 +48,18 @@ import torch
 from . import bg as B
 from . import messages as M
 from .shard import shard_round
-from .types import DiLiConfig, ShardState
+from .types import DiLiConfig, ShardState, on_device, resolve_device
 
 
 class SpmdOut(NamedTuple):
-    """One SPMD round's results, each stacked over the shards the
-    process runs. ``inbox`` is the routed next-round inbox
-    (``make_dili_round``) or the raw outbox ``[S, mailbox_cap, F]``
-    (``make_dili_round_hostroute``); ``stats`` is ``int32[S, 9]`` or
-    ``int32[S, 8]`` in each builder's lane order. The completion lanes
-    and ``stats`` are host tensors (``shard_round`` builds the lanes
-    there)."""
+    """One SPMD round's results over the shards the process runs.
+    ``states``, ``bgs`` and a routed ``inbox`` are per-shard lists in the
+    placed layout and stacked trees otherwise; ``inbox`` is the routed
+    next-round inbox (``make_dili_round``) or the raw outbox
+    ``[S, mailbox_cap, F]`` on the host (``make_dili_round_hostroute``);
+    ``stats`` is ``int32[S, 9]`` or ``int32[S, 8]`` in each factory's lane
+    order. The completion lanes and ``stats`` are host tensors
+    (``shard_round`` builds the lanes there)."""
     states: ShardState
     bgs: B.BgTable
     inbox: torch.Tensor
@@ -64,6 +69,35 @@ class SpmdOut(NamedTuple):
     comp_key: torch.Tensor
     stats: torch.Tensor
     ent_hits: torch.Tensor
+
+
+# ------------------------------------------------------------- placement
+
+def placement(cfg: DiLiConfig, device="cuda",
+              devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The device of each of ``cfg.num_shards`` shards.
+
+    ``devices`` lists them one per shard (repeats allowed; any other
+    length raises). Otherwise ``device="cuda"`` with no index puts shard
+    ``s`` on ``cuda:{s % torch.cuda.device_count()}``: with fewer cards
+    than shards the shards fold onto the cards in turn, where the
+    reference's mesh raises. ``"cuda:N"`` or ``"cpu"`` puts every shard
+    there. ``resolve_device`` gates each: asking for CUDA without a card
+    raises. A CUDA device always carries its index."""
+    num = cfg.num_shards
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if len(devs) != num:
+            raise ValueError(f"devices= lists {len(devs)} devices for "
+                             f"{num} shards: give one per shard")
+        return [torch.device("cuda", torch.cuda.current_device())
+                if d.type == "cuda" and d.index is None else d
+                for d in devs]
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        cards = torch.cuda.device_count()
+        return [torch.device("cuda", s % cards) for s in range(num)]
+    return [dev] * num
 
 
 # ------------------------------------------------------------ state layout
@@ -85,8 +119,9 @@ def shard_slice(tree, i):
 
 
 def stack_states(states: Sequence[ShardState], bgs: Sequence[B.BgTable]):
-    """Per-shard states and background tables → one ``ShardState`` and
-    one ``BgTable`` whose leaves carry a leading shard dimension."""
+    """Per-shard states and background tables on one device → one
+    ``ShardState`` and one ``BgTable`` whose leaves carry a leading shard
+    dimension."""
     return _stack(list(states)), _stack(list(bgs))
 
 
@@ -95,6 +130,29 @@ def unstack_states(states: ShardState, bgs: B.BgTable):
     n = states.pool.key.shape[0]
     return ([shard_slice(states, i) for i in range(n)],
             [shard_slice(bgs, i) for i in range(n)])
+
+
+def gather_host(tensors: Sequence[torch.Tensor], devices) -> torch.Tensor:
+    """``torch.stack(tensors)`` on the host, with one device-to-host copy
+    per device: the shards that share a device are stacked there and
+    cross together. ``devices[i]`` is where ``tensors[i]`` lies."""
+    groups = _by_device(devices)
+    if len(groups) == 1:
+        return torch.stack(list(tensors)).cpu()
+    out = [None] * len(tensors)
+    for idx in groups.values():
+        host = torch.stack([tensors[i] for i in idx]).cpu()
+        for j, i in enumerate(idx):
+            out[i] = host[j]
+    return torch.stack(out)
+
+
+def _by_device(devices) -> Dict[torch.device, List[int]]:
+    """Shard positions grouped by device, in first-seen order."""
+    groups: Dict[torch.device, List[int]] = {}
+    for i, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(i)
+    return groups
 
 
 # --------------------------------------------------------------- bucketing
@@ -146,19 +204,36 @@ def bucket_by_dst(outbox, count, num_shards: int, cap_pair: int):
     return buckets[0], counts[0]
 
 
+def _bucket_placed(outs, devices, num_shards: int, cap_pair: int):
+    """Every source's buckets ``[S, cap_pair, F]`` on its own device: the
+    host outboxes of the shards on one device cross to it together and
+    are bucketed in one call."""
+    buckets = [None] * len(outs)
+    for dev, idx in _by_device(devices).items():
+        ob = torch.stack([outs[i].outbox for i in idx]).to(dev)
+        cnt = torch.stack([outs[i].out_count for i in idx]).to(dev)
+        b, _ = _bucket_many(ob, cnt, num_shards, cap_pair)
+        for j, i in enumerate(idx):
+            buckets[i] = b[j]
+    return buckets
+
+
 # ---------------------------------------------------------------- exchange
 
-def _exchange(buckets: torch.Tensor, group) -> torch.Tensor:
-    """Route ``[n, S, cap_pair, F]`` buckets: ``out[d]`` is every
-    source's bucket for ``d``, in source order."""
-    n, num, cap_pair, fields = buckets.shape
+def _exchange(buckets, devices, group) -> List[torch.Tensor]:
+    """Route every source's ``[S, cap_pair, F]`` buckets: ``out[d]``, on
+    ``devices[d]``, is every source's bucket for ``d`` in source order.
+    A bucket crosses to another card as an asynchronous peer copy, which
+    PyTorch orders against both cards' current streams; between shards
+    on one device nothing is copied but the concatenation."""
     if group is None:
-        return buckets.transpose(0, 1).reshape(num, num * cap_pair, fields)
+        return [torch.cat([b[d].to(dev, non_blocking=True) for b in buckets])
+                for d, dev in enumerate(devices)]
     import torch.distributed as dist
-    send = buckets[0].reshape(num * cap_pair, fields).contiguous()
+    send = buckets[0].reshape(-1, buckets[0].shape[-1]).contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
-    return recv.reshape(1, num * cap_pair, fields)
+    return [recv]
 
 
 def _local_shards(cfg: DiLiConfig, group) -> List[int]:
@@ -174,20 +249,29 @@ def _local_shards(cfg: DiLiConfig, group) -> List[int]:
     return [dist.get_rank(group)]
 
 
+# ------------------------------------------------------------------ rounds
+
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x, np.int32)
 
 
-def _run_shards(states, bgs, inbox, client, shards, cfg, timer):
-    """``shard_round`` of every local shard. The inbox and the client feed
-    cross to the host once for all shards (the serial pass reads them
-    there)."""
-    inbox_h, client_h = _host(inbox), _host(client)
-    return [shard_round(shard_slice(states, i), shard_slice(bgs, i), me,
-                        inbox_h[i], client_h[i], cfg, timer=timer)
-            for i, me in enumerate(shards)]
+def _devices(states) -> List[torch.device]:
+    return [st.pool.key.device for st in states]
+
+
+def _run_shards(states, bgs, inbox_h, client, shards, cfg, timer):
+    """``shard_round`` of every local shard, each with its own device
+    current. ``inbox_h`` and the client feed are read on the host (the
+    serial pass reads them there)."""
+    client_h = _host(client)
+    outs = []
+    for i, me in enumerate(shards):
+        with on_device(states[i].pool.key.device):
+            outs.append(shard_round(states[i], bgs[i], me, inbox_h[i],
+                                    client_h[i], cfg, timer=timer))
+    return outs
 
 
 def _scalars(outs, names) -> torch.Tensor:
@@ -195,12 +279,20 @@ def _scalars(outs, names) -> torch.Tensor:
                         dtype=torch.int32)
 
 
-def _common(outs):
-    """The stacked state, table, completion lanes and ``ent_hits``."""
-    states, bgs = stack_states([o.state for o in outs], [o.bg for o in outs])
-    lanes = [torch.stack([getattr(o, k) for o in outs])
-             for k in ("comp_slot", "comp_val", "comp_src", "comp_key")]
-    return states, bgs, lanes, torch.stack([o.ent_hits for o in outs])
+def _lanes(outs):
+    return [torch.stack([getattr(o, k) for o in outs])
+            for k in ("comp_slot", "comp_val", "comp_src", "comp_key")]
+
+
+def _wire(routed: torch.Tensor) -> torch.Tensor:
+    """One destination's three wire lanes (live rows, delegated MSG_OP
+    rows, their largest hop count), counted on its device."""
+    kind = routed[:, M.F_KIND]
+    is_op = kind == M.MSG_OP
+    hops = torch.where(is_op, routed[:, M.F_X2],
+                       torch.zeros_like(routed[:, M.F_X2]))
+    return torch.stack([(kind != M.MSG_NONE).sum(), is_op.sum(),
+                        hops.max()]).to(torch.int32)
 
 
 def _span(timer):
@@ -208,10 +300,33 @@ def _span(timer):
         lambda name: contextlib.nullcontext())
 
 
+def _stacked(rnd, routed: bool):
+    """The placed round ``rnd`` over trees stacked on one device: unstack,
+    run with every shard on that device, restack."""
+    def stacked(states, bgs, inbox, client) -> SpmdOut:
+        dev = states.pool.key.device
+        sts, bgl = unstack_states(states, bgs)
+        out = rnd(sts, bgl, list(torch.as_tensor(inbox)) if routed
+                  else inbox, client)
+        st, bg = stack_states(out.states, out.bgs)
+        return out._replace(
+            states=st, bgs=bg, ent_hits=out.ent_hits.to(dev),
+            inbox=torch.stack(out.inbox) if routed else out.inbox)
+    return stacked
+
+
 def make_dili_round(cfg: DiLiConfig, cap_pair: int = 8, *, group=None,
-                    timer=None):
+                    timer=None, placed: bool = False):
     """Build the SPMD round: ``(states, bgs, inbox [S, S*cap_pair, F],
     client [S, batch, F]) -> SpmdOut`` with the routed next-round inbox.
+
+    With ``placed=True`` the round takes and returns the placed layout:
+    ``states``, ``bgs`` and ``inbox`` are lists with one entry per shard,
+    each on the device of that shard's state (``placement``). Shard
+    ``s``'s ``shard_round`` and bucketing run on its device, and
+    ``inbox[d]`` comes back on shard ``d``'s. Without it they are trees
+    stacked over the shards on one device, which the round unstacks and
+    restacks around the same code.
 
     ``stats`` is ``int32[S, 9]`` per shard, the reference's lanes:
 
@@ -225,64 +340,64 @@ def make_dili_round(cfg: DiLiConfig, cap_pair: int = 8, *, group=None,
       7  FINDs answered from a replica slot
       8  RANGE segments served by the packed-block gather pre-pass
 
-    ``ent_hits`` is ``int32[S, M]``, per-entry op attribution. The routed
-    inbox and ``ent_hits`` stay on the states' device; the three wire
-    lanes of ``stats`` are counted there and cross to the host in one
-    copy, so the host never pulls the routed inbox. With a
-    ``group`` every argument and result holds this rank's shard only.
-    ``timer`` (a ``timing.PhaseTimer``) gets ``shard_round``'s phases and
-    the ``bucket`` and ``exchange`` spans."""
+    ``ent_hits`` is ``int32[S, M]``, per-entry op attribution. The three
+    wire lanes of ``stats`` are counted on each destination's device and
+    cross to the host with ``ent_hits``, one copy per device, so the host
+    never pulls the routed inbox; the placed round returns ``ent_hits`` on
+    the host, the stacked one on the states' device. With a ``group``
+    every argument and result holds this rank's shard only. ``timer`` (a
+    ``timing.PhaseTimer``) gets ``shard_round``'s phases and the
+    ``bucket`` and ``exchange`` spans."""
     num = cfg.num_shards
     cap_pair = int(cap_pair)
     t = _span(timer)
 
     def rnd(states, bgs, inbox, client) -> SpmdOut:
         shards = _local_shards(cfg, group)
-        dev = states.pool.key.device
-        outs = _run_shards(states, bgs, inbox, client, shards, cfg, timer)
-        st, bg, lanes, ent_hits = _common(outs)
+        devs = _devices(states)
+        outs = _run_shards(states, bgs, _host(gather_host(inbox, devs)),
+                           client, shards, cfg, timer)
         with t("bucket"):
-            ob = torch.stack([o.outbox for o in outs]).to(dev)
-            cnt = torch.stack([o.out_count for o in outs]).to(dev)
-            buckets, _ = _bucket_many(ob, cnt, num, cap_pair)
+            buckets = _bucket_placed(outs, devs, num, cap_pair)
         with t("exchange"):
-            routed = _exchange(buckets, group)
-        kind = routed[..., M.F_KIND]
-        is_op = kind == M.MSG_OP
-        hops = torch.where(is_op, routed[..., M.F_X2],
-                           torch.zeros_like(routed[..., M.F_X2]))
-        wire = torch.stack([(kind != M.MSG_NONE).sum(1), is_op.sum(1),
-                            hops.max(1).values], 1).to(torch.int32).cpu()
+            routed = _exchange(buckets, devs, group)
+        host = gather_host([torch.cat([_wire(r), o.ent_hits])
+                            for r, o in zip(routed, outs)], devs)
         own = _scalars(outs, ("out_count",))
         rest = _scalars(outs, ("bg_active", "move_hits", "blk_hits",
                                "rep_hits", "range_hits"))
-        stats = torch.cat([own, wire, rest], 1)
-        return SpmdOut(st, bg, routed, *lanes, stats, ent_hits)
+        stats = torch.cat([own, host[:, :3], rest], 1)
+        return SpmdOut([o.state for o in outs], [o.bg for o in outs], routed,
+                       *_lanes(outs), stats, host[:, 3:])
 
-    return rnd
+    return rnd if placed else _stacked(rnd, routed=True)
 
 
-def make_dili_round_hostroute(cfg: DiLiConfig, *, timer=None):
+def make_dili_round_hostroute(cfg: DiLiConfig, *, timer=None,
+                              placed: bool = False):
     """The SPMD round without the exchange: ``(states, bgs, inbox
     [S, in_cap, F], client [S, batch, F]) -> SpmdOut`` whose ``inbox`` is
-    the raw outbox ``[S, mailbox_cap, F]``, for the host to route through
-    ``core.net.Transport`` (the nemesis lives on the wire between outboxes
-    and inboxes, so routing crosses the host). ``stats`` is
+    the raw outbox ``[S, mailbox_cap, F]`` on the host, for the host to
+    route through ``core.net.Transport`` (the nemesis lives on the wire
+    between outboxes and inboxes, so routing crosses the host). The inbox
+    argument is a host array in both layouts; ``placed`` takes per-shard
+    states and tables as in ``make_dili_round``. ``stats`` is
     ``int32[S, 8]``: out_count, bg_active, move_hits, fast_hits,
     mut_hits, blk_hits, rep_hits, range_hits. Delegation hops are counted
     by the host from the outbox rows."""
 
     def rnd(states, bgs, inbox, client) -> SpmdOut:
-        outs = _run_shards(states, bgs, inbox, client,
+        outs = _run_shards(states, bgs, _host(inbox), client,
                            range(cfg.num_shards), cfg, timer)
-        st, bg, lanes, ent_hits = _common(outs)
         stats = _scalars(outs, ("out_count", "bg_active", "move_hits",
                                 "fast_hits", "mut_hits", "blk_hits",
                                 "rep_hits", "range_hits"))
-        return SpmdOut(st, bg, torch.stack([o.outbox for o in outs]),
-                       *lanes, stats, ent_hits)
+        ent_hits = gather_host([o.ent_hits for o in outs], _devices(states))
+        return SpmdOut([o.state for o in outs], [o.bg for o in outs],
+                       torch.stack([o.outbox for o in outs]),
+                       *_lanes(outs), stats, ent_hits)
 
-    return rnd
+    return rnd if placed else _stacked(rnd, routed=False)
 
 
 def service_input_specs(cfg: DiLiConfig, num_shards: int, in_cap: int):

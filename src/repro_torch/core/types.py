@@ -7,6 +7,7 @@ hold int32 bit patterns (see ``refs``) where the reference holds uint32.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +44,16 @@ def resolve_device(device) -> torch.device:
             f"device={device!r} but torch sees no CUDA device — pass "
             f"device='cpu' to run the port on the CPU")
     return dev
+
+
+def on_device(dev: torch.device):
+    """Make ``dev`` the current CUDA device inside the block, so work that
+    does not follow its tensors' device (a raw kernel launch, a bare
+    ``"cuda"`` allocation, ``torch.cuda.synchronize()``) lands on it; a
+    no-op for any other device."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 class DiLiConfig(NamedTuple):

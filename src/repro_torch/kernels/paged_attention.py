@@ -9,6 +9,10 @@ The kernel splits each sequence's pages across blocks (``split_pages``)
 and merges the splits in the same launch. The merge's per-unit counters
 are an int32 tensor cached per device and reset by the kernel itself, so
 launches that share them must run in order on one stream.
+
+A ``<<<>>>`` launch behind the C interface goes to the calling thread's
+current device, whatever stream it is handed, so the launch runs with the
+inputs' device made current.
 """
 from __future__ import annotations
 
@@ -92,11 +96,11 @@ def build(verbose: bool = False):
 
 def launch(q, k_pages, v_pages, page_table, seq_lens, *,
            splits: tuple[int, int] | None = None) -> torch.Tensor:
-    """Launch on the current CUDA stream. Inputs are validated by the
-    public wrapper (``kernels/ops.py``); the output and the split
-    workspace are allocated here. ``splits`` = (splits, pages per split)
-    overrides ``split_pages`` (for measurement; their product must cover
-    the table's pages)."""
+    """Launch on the inputs' device and its current CUDA stream. Inputs
+    are validated by the public wrapper (``kernels/ops.py``); the output
+    and the split workspace are allocated here. ``splits`` = (splits,
+    pages per split) overrides ``split_pages`` (for measurement; their
+    product must cover the table's pages)."""
     lib = B.load(NAME, _SYMBOLS)
     b, h, d = q.shape
     n_pages, s, kh, _ = k_pages.shape
@@ -120,13 +124,14 @@ def launch(q, k_pages, v_pages, page_table, seq_lens, *,
                          dtype=torch.float32, device=q.device)
         counters = _unit_counters(q.device, units)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.paged_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        None if counters is None else counters.data_ptr(),
-        b, h, kh, d, n_pages, s, pp, n_split, per, gb, float(d ** -0.5),
-        _DTYPES[q.dtype], stream)
+    with torch.cuda.device(q.device):
+        err = lib.paged_attention_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            b, h, kh, d, n_pages, s, pp, n_split, per, gb,
+            float(d ** -0.5), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
     return out

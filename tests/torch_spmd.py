@@ -64,6 +64,7 @@ def pkg(name: str) -> SimpleNamespace:
         return SimpleNamespace(
             name=name, api=api, dist=dist, M=M, sim=sim, types=types,
             OracleList=OracleList, extra={}, asarray=jnp.asarray,
+            stacked=lambda backend: (backend._states, backend._bgs),
             round=lambda cfg, **kw: dist.make_dili_round(
                 mesh(cfg.num_shards), cfg, **kw),
             hostroute=lambda cfg: dist.make_dili_round_hostroute(
@@ -80,6 +81,11 @@ def pkg(name: str) -> SimpleNamespace:
         name=name, api=api, dist=dist, M=M, sim=sim, types=types,
         OracleList=OracleList, extra=dict(device="cpu"),
         asarray=torch.as_tensor,
+        # the port holds one tree per shard (on its own device); the
+        # reference's digest is of the tree stacked over the shards
+        stacked=lambda backend: dist.stack_states(
+            [types.tree_map(torch.Tensor.cpu, t) for t in backend._states],
+            [types.tree_map(torch.Tensor.cpu, t) for t in backend._bgs]),
         round=lambda cfg, **kw: dist.make_dili_round(cfg, **kw),
         hostroute=lambda cfg: dist.make_dili_round_hostroute(cfg))
 
@@ -254,7 +260,7 @@ def replica_run(P) -> dict:
 
     def recorded():
         out = step()
-        digests.append(digest(backend._states, backend._bgs))
+        digests.append(digest(*P.stacked(backend)))
         return out
 
     backend.step = recorded
