@@ -35,9 +35,8 @@ which makes the script exit non-zero when it fails:
                the same seeds and code path). The kernel's launch count
                shows the main path went through it, and the pre-pass's
                pointer walk must take ``FIG3A_WALK_STEPS`` steps (the
-               lanes the kernel answers skip it). Then a profiler
-               window (the device's busy share) and a second run under
-               the per-phase timer (the round's breakdown);
+               lanes the kernel answers skip it). Then a second run
+               under the per-phase timer (the round's breakdown);
   3a. fig3a_skip — fig3a's DiLi-against-skip-list rows: the skip list
                (``SKIP``: capacity 2**15, 14 levels, the load in one
                batch, the mix in batches of 64, its state on the card and
@@ -169,13 +168,13 @@ which makes the script exit non-zero when it fails:
   8. scale   — the paper's capacities (2**21 pool nodes, 16384 registry
                entries) with ``SCALE_KEYS`` loaded keys and as many r50
                ops, checked against the oracle; then a window of rounds
-               under the per-phase timer and a profiler window. Both DiLi
-               phases log the walk's steps and its milliseconds per step;
+               under the per-phase timer. Both DiLi phases log the walk's
+               steps and its milliseconds per step;
   9. scale4  — four servers at those capacities each, ``SCALE4_KEYS``
                keys and as many r50 ops: the key set agrees with the
                ops' results, owned keys
                within 1.25x of the mean after the settle, a Move into each
-               of servers 1-3; breakdown and a profiler window.
+               of servers 1-3; the breakdown.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -1777,44 +1776,6 @@ def _run_fig3a(timer, read_pct: int = 50):
                 backend=backend, kinds=kinds, keys=keys)
 
 
-def profile_rounds(backend, kinds, keys, rounds: int = 8) -> dict:
-    """A ``torch.profiler`` window over ``rounds`` rounds of r50 traffic on
-    a settled list, 64 ops per server per round: the device's busy share
-    of the wall time, and the device work that fills it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for r in range(rounds):
-            for s in range(backend.n):
-                i = 64 * (r * backend.n + s)
-                backend.submit(s, kinds[i:i + 64].tolist(),
-                               keys[i:i + 64].tolist())
-            backend.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = _device_events(prof)
-    busy = sum(e.self_device_time_total for e in ev) / 1e6
-    launches = sum(e.count for e in ev)
-    # every host read of a device scalar (an early-exit test, a count)
-    # waits for the device
-    reads = sum(e.count for e in prof.key_averages()
-                if e.key == "aten::_local_scalar_dense")
-    top = sorted(ev, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:6]
-    log(f"[profile] {rounds} r50 rounds: wall {wall * 1e3:.2f} ms, device "
-        f"busy {busy * 1e3:.3f} ms ({100 * busy / wall:.2f}% of wall, idle "
-        f"{100 - 100 * busy / wall:.2f}%); {launches / rounds:.0f} device "
-        f"launches and {reads / rounds:.0f} host reads of a device scalar "
-        f"per round; top: " + "; ".join(
-            f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-            for e in top))
-    return dict(busy_share=busy / wall, launches_per_round=launches / rounds,
-                reads_per_round=reads / rounds)
-
-
 def phase_fig3a() -> dict:
     from repro_torch.timing import PhaseTimer
     plain = _run_fig3a(None)
@@ -1825,11 +1786,10 @@ def phase_fig3a() -> dict:
         f"launches over load+settle+mix: {plain['launches']}; walk steps "
         f"{plain['walk_steps']} (= FIG3A_WALK_STEPS), "
         f"{plain['mix_walk_steps']} of them in the mix")
-    prof = profile_rounds(plain.pop("backend"), plain.pop("kinds"),
-                          plain.pop("keys"))
     timer = PhaseTimer("cuda")
     timed = _run_fig3a(timer)
     for k in ("backend", "kinds", "keys"):
+        plain.pop(k)
         timed.pop(k)
     bd = breakdown(timer, timed["mix_rounds"])
     per_step = walk_ms_per_step(timer, timed["mix_walk_steps"],
@@ -1838,7 +1798,7 @@ def phase_fig3a() -> dict:
         f"per-round ms over the mix: {json.dumps(bd)}; round "
         f"{1e3 * timed['seconds'] / timed['mix_rounds']:.3f} ms; "
         f"probe_batch {per_step}")
-    return dict(plain=plain, timed=timed, breakdown=bd, profile=prof)
+    return dict(plain=plain, timed=timed, breakdown=bd)
 
 
 def skiplist_digest(load_res, mix_res, sl) -> str:
@@ -1973,7 +1933,7 @@ def phase_client() -> None:
 def phase_scale(n_keys: int, timed_rounds: int) -> dict:
     """Load, settle and an untimed r50 mix (ops/s) checked against the
     oracle; then ``timed_rounds`` more rounds of the same mix under the
-    phase timer (the breakdown) and a profiler window."""
+    phase timer (the breakdown)."""
     import torch
     from repro_torch.api import LocalBackend
     from repro_torch.core.balancer import Balancer
@@ -2045,7 +2005,6 @@ def phase_scale(n_keys: int, timed_rounds: int) -> dict:
         f"{n / dt_t:.1f} ops/s, round {1e3 * dt_t / rounds_t:.3f} ms; "
         f"per-round ms: {json.dumps(bd)}; probe_batch "
         f"{walk_ms_per_step(timer, probe_batch.steps - s0, rounds_t)}")
-    profile_rounds(backend, kinds, keys)
     return dict(ops_per_s=len(kinds) / dt, launches=launches,
                 walk_steps=walk_steps)
 
@@ -2243,7 +2202,7 @@ def phase_scale4(n_keys: int) -> dict:
     ``n_keys`` loaded keys, the balancer's settle, then as many r50 ops,
     checked against the ops' results. After the settle the owned keys must be
     spread within 1.25x of the mean and each of servers 1-3 must have
-    received a Move. A profiler window closes it."""
+    received a Move."""
     import torch
     from repro_torch.api import LocalBackend
     from repro_torch.core.balancer import Balancer
@@ -2306,10 +2265,9 @@ def phase_scale4(n_keys: int) -> dict:
         f"{json.dumps(bd_settle)}")
     log(f"[scale4] per-round ms over the mix: {json.dumps(bd)}")
     backend.cluster.timer = None
-    prof = profile_rounds(backend, kinds, keys, rounds=4)
     return dict(ops_per_s=len(kinds) / dt, ms_per_round=1e3 * dt / mix_rounds,
                 launches=launches, per_server=per_server, moves=moves,
-                spread=spread, profile=prof)
+                spread=spread)
 
 
 def nemesis4_cfg():

@@ -25,7 +25,6 @@ cap_pair, group=...)`` itself.
 """
 from __future__ import annotations
 
-import contextlib
 import logging
 import tempfile
 from collections import deque
@@ -34,6 +33,7 @@ from typing import Dict, List, Optional, Protocol, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import timing
 from ..core import bg as B
 from ..core import messages as M
 from ..core import range_scan as RS
@@ -42,6 +42,7 @@ from ..core import replica as R
 from ..core.distributed import (gather_host, make_dili_round,
                                 make_dili_round_hostroute, placement)
 from ..core.durability import Durability, validate_crash_plans, wal
+from ..core.host import to_cpu
 from ..core.membership import (Membership, epoch_row, moves_targeting,
                                owned_entry_count)
 from ..core.net import Nemesis, Transport, trace_entry
@@ -196,6 +197,11 @@ class LocalBackend:
         return comps
 
     @property
+    def timer(self):
+        """The cluster's span tracer (a ``timing.PhaseTimer``), or None."""
+        return self.cluster.timer
+
+    @property
     def net(self):
         """The reliable transport, or None when routing is direct."""
         return self.cluster.net
@@ -285,7 +291,7 @@ class LocalBackend:
 
 def _host_tree(tree):
     """Every leaf of a tree on the host, one copy each."""
-    return tree_map(lambda x: x.detach().cpu(), tree)
+    return tree_map(to_cpu, tree)
 
 
 def _to(tree, dev: torch.device):
@@ -434,10 +440,6 @@ class ShardMapBackend:
     @property
     def n(self) -> int:
         return self.cfg.num_shards
-
-    def _span(self, name: str):
-        return (self.timer(name) if self.timer is not None
-                else contextlib.nullcontext())
 
     def submit(self, shard, kinds, keys, values=None) -> List[int]:
         if not self.membership.is_routable(shard):
@@ -702,7 +704,7 @@ class ShardMapBackend:
         out = self._rnd(self._states, self._bgs, inbox, client)
         self._states, self._bgs = out.states, out.bgs
         self._host_states = None
-        with self._span("host_routing"):
+        with timing.tracer(self.timer)("host_routing"):
             rstats = out.stats.numpy()
             out_counts = [int(c) for c in rstats[:, 0]]
             self._check_overflow(out_counts)
@@ -774,7 +776,7 @@ class ShardMapBackend:
         out = self._rnd(self._states, self._bgs, self._inbox, client)
         self._states, self._bgs, self._inbox = out.states, out.bgs, out.inbox
         self._host_states = None
-        with self._span("host_routing"):
+        with timing.tracer(self.timer)("host_routing"):
             # per-shard int32[9] round stats (the routed inbox itself
             # never crosses to the host; see make_dili_round's lane list)
             rstats = out.stats.numpy()

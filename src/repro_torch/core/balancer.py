@@ -41,7 +41,9 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Protocol
 
+from .. import timing
 from . import bg as B
+from .host import to_numpy
 
 
 class BalancePolicy(Protocol):
@@ -101,7 +103,12 @@ class Balancer:
                 and e["size"] is not None]
 
     def step(self) -> dict:
-        """One balancing pass; returns counts of issued commands."""
+        """One balancing pass; returns counts of issued commands. The pass
+        is the span ``balance`` of the cluster's or backend's ``timer``."""
+        with timing.tracer(getattr(self.cl, "timer", None))("balance"):
+            return self._pass()
+
+    def _pass(self) -> dict:
         cl = self.cl
         issued = {"split": 0, "move": 0, "merge": 0, "evacuate": 0,
                   "replicate": 0, "drop": 0}
@@ -201,7 +208,8 @@ class Balancer:
         inflight_splits = sum(
             int(((ph == B.BG_SPLIT_EXEC) | (ph == B.BG_SPLIT_WAIT)).sum())
             for ph in (B.slot_phases(bgs[s]) for s in routable))
-        reg_used = max(int(cl.states[s].registry.size) for s in range(cl.n))
+        reg_used = max(int(to_numpy(cl.states[s].registry.size))
+                       for s in range(cl.n))
         reg_room = (cl.cfg.max_sublists - reg_used
                     - self.registry_headroom - inflight_splits)
 

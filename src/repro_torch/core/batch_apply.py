@@ -23,12 +23,12 @@ order), and the ``mode="drop"`` scatters masked writes.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import timing
 from . import blocks as BL
 from . import messages as M
 from . import refs
@@ -169,7 +169,7 @@ def round_prepass(state: ShardState, rows, rows_np, me, cfg: DiLiConfig,
     key_k = key[sel]
     op_k = op[sel]
     ent_k = rt.entry[sel]
-    t = timer if timer is not None else (lambda name: contextlib.nullcontext())
+    t = timing.tracer(timer)
 
     # packed-block stage-2 probe (DESIGN.md §12), ahead of the walk: lanes
     # whose entry has a valid block are answered by the hybrid-search
@@ -298,6 +298,7 @@ def round_prepass(state: ShardState, rows, rows_np, me, cfg: DiLiConfig,
     right_nxt = pool.nxt[right_g]
     gi = does_ins.nonzero().squeeze(1)      # groups that insert
     gm = does_mark.nonzero().squeeze(1)     # groups that mark
+    timing.crossed(gi, 2, nbytes=8)         # each nonzero reads its count
     ins_at = new_idx[gi].long()
     pool.key[ins_at] = key_g[gi]
     pool.ts[ins_at] = new_ts[gi]

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import refs
+from ..host import to_numpy as _np
 from ..types import DiLiConfig, SH_KEY, resolve_device
 
 # ------------------------------------------------------------------ phases
@@ -84,11 +85,6 @@ def init_bg_table(cfg: DiLiConfig, device="cuda") -> BgTable:
 
 
 # ----------------------------------------------------- host-side inspection
-
-def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
-
 
 def slot_phases(table: BgTable) -> np.ndarray:
     return _np(table.phase)

@@ -30,9 +30,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ... import timing
 from .. import messages as M
 from .. import refs
 from ..batch_apply import _count_eq, _seg, batched_alloc
+from ..host import to_numpy
 from ..types import DiLiConfig, ST_KEY, ShardState
 from .fsm import FL_MARKED, FL_ST
 
@@ -63,7 +65,7 @@ def replay_prepass(state: ShardState, rows, me, outbox, count,
     state is updated in place and returned; the acks are appended to the
     host ``outbox`` in lane order."""
     if rows_np is None:
-        rows_np = rows.detach().cpu().numpy()
+        rows_np = to_numpy(rows)
     R = rows.shape[0]
     handled = np.zeros((R,), bool)
     n_mv = int((rows_np[:, M.F_KIND] == M.MSG_MOVE_ITEMS).sum())
@@ -118,6 +120,8 @@ def replay_prepass(state: ShardState, rows, me, outbox, count,
         widx = torch.where(stop, widx, nxt)
         done = stop
         steps += 1
+    reads = steps + (steps < cfg.max_scan)
+    timing.crossed(done, reads, nbytes=reads)
     found = (pool.sid[widx] == psid) & (pool.ts[widx] == pts)
 
     # ---- per-run aggregates (segments of the lane axis)
@@ -197,8 +201,8 @@ def replay_prepass(state: ShardState, rows, me, outbox, count,
     ack[:, M.F_A] = rf[:, M.F_A]
     ack[:, M.F_SLOT] = rf[:, M.F_SLOT]
     lane_of = sel[s2]                  # inbox row of each lane
-    host = torch.cat([ack.reshape(-1), elig.to(_I32),
-                      lane_of.to(_I32)]).cpu().numpy()
+    host = to_numpy(torch.cat([ack.reshape(-1), elig.to(_I32),
+                               lane_of.to(_I32)]))
     acks = host[:k * M.FIELDS].reshape(k, M.FIELDS)
     elig_np = host[k * M.FIELDS:k * M.FIELDS + k].astype(bool)
     handled[host[k * M.FIELDS + k:][elig_np]] = True

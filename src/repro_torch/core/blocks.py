@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import timing
 from . import refs
 from ..kernels import ops as K
 from .types import Blocks, DiLiConfig, SH_KEY, ST_KEY, ShardState
@@ -100,6 +101,10 @@ def refresh_blocks(state: ShardState, me, cfg: DiLiConfig) -> ShardState:
         col = col + write.to(torch.int32)
         cur = torch.where(collecting, word, cur)
         i += 1
+    # the loop's test is read on the host each time it runs, a byte a read
+    reads = i + (i < cfg.max_scan)
+    timing.count("refresh_steps", i)
+    timing.crossed(collecting, reads, nbytes=reads)
     # rows still collecting at the bound never reached their subtail
     valid = (blk.valid | good) & live
     return state._replace(blk=Blocks(keys=keys[:, :c].contiguous(),

@@ -39,14 +39,15 @@ shapes on meta for the dry-run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import timing
 from . import bg as B
 from . import messages as M
+from .host import to_cpu, to_numpy
 from .shard import shard_round
 from .types import DiLiConfig, ShardState, on_device, resolve_device
 
@@ -138,10 +139,10 @@ def gather_host(tensors: Sequence[torch.Tensor], devices) -> torch.Tensor:
     cross together. ``devices[i]`` is where ``tensors[i]`` lies."""
     groups = _by_device(devices)
     if len(groups) == 1:
-        return torch.stack(list(tensors)).cpu()
+        return to_cpu(torch.stack(list(tensors)))
     out = [None] * len(tensors)
     for idx in groups.values():
-        host = torch.stack([tensors[i] for i in idx]).cpu()
+        host = to_cpu(torch.stack([tensors[i] for i in idx]))
         for j, i in enumerate(idx):
             out[i] = host[j]
     return torch.stack(out)
@@ -253,7 +254,7 @@ def _local_shards(cfg: DiLiConfig, group) -> List[int]:
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return to_numpy(x)
     return np.asarray(x, np.int32)
 
 
@@ -293,11 +294,6 @@ def _wire(routed: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(routed[:, M.F_X2]))
     return torch.stack([(kind != M.MSG_NONE).sum(), is_op.sum(),
                         hops.max()]).to(torch.int32)
-
-
-def _span(timer):
-    return timer if timer is not None else (
-        lambda name: contextlib.nullcontext())
 
 
 def _stacked(rnd, routed: bool):
@@ -350,7 +346,7 @@ def make_dili_round(cfg: DiLiConfig, cap_pair: int = 8, *, group=None,
     ``bucket`` and ``exchange`` spans."""
     num = cfg.num_shards
     cap_pair = int(cap_pair)
-    t = _span(timer)
+    t = timing.tracer(timer)
 
     def rnd(states, bgs, inbox, client) -> SpmdOut:
         shards = _local_shards(cfg, group)

@@ -6,13 +6,16 @@ Python loops over numpy copies of the columns they touch: a column is
 copied to the host on first use, every write goes through ``put`` (which
 records the row) or ``replace`` (whole column), and ``commit`` writes only
 the touched rows back to the device. On a CPU device the numpy arrays share
-memory with the tensors, so nothing is copied either way.
+memory with the tensors, so nothing is copied either way. ``to_cpu`` and
+``to_numpy`` are the round's way to the host: a read of a card's tensor
+is counted there (``timing.crossed``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import timing
 from .types import Registry, ShardState
 
 # host name -> (path into ShardState)
@@ -43,8 +46,19 @@ def _get(state, path):
     return x
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def to_cpu(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: a tensor on a card is copied and the read
+    counted (``timing.crossed``); a CPU tensor is returned as it is."""
+    timing.crossed(t)
+    return t.detach().cpu()
+
+
+def to_numpy(t) -> np.ndarray:
+    """``t`` as a numpy array on the host (``to_cpu``); anything but a
+    tensor goes through ``np.asarray``."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    return to_cpu(t).numpy()
 
 
 class HostShard:

@@ -22,12 +22,12 @@ answers local FINDs from serving replica slots, and the publication step
 """
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import timing
 from . import batch_apply as BA
 from . import bg as B
 from . import blocks as BL
@@ -37,7 +37,7 @@ from . import range_scan as RS
 from . import refs
 from . import registry as REG
 from . import replica as R
-from .host import HostShard
+from .host import HostShard, to_numpy
 from .types import DiLiConfig, RES_PENDING, SH_KEY, ShardState, clone_state
 
 class RoundOut(NamedTuple):
@@ -142,18 +142,21 @@ def _dispatch(kind: int):
 
 
 def _host_rows(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    return np.asarray(x, np.int32).reshape(-1, M.FIELDS)
+    return np.asarray(to_numpy(x), np.int32).reshape(-1, M.FIELDS)
 
 
 def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
                 cfg: DiLiConfig, *, timer=None) -> RoundOut:
     """``inbox``/``client``: [*, FIELDS] int32 rows (numpy or tensors),
     MSG_NONE-padded. ``state`` and ``bg`` are not modified. ``timer``, if
-    given, is a ``timing.PhaseTimer`` that receives the phase breakdown."""
-    t = timer if timer is not None else (lambda name: contextlib.nullcontext())
-    me = int(me)
+    given, is a ``timing.PhaseTimer`` that receives the phase breakdown,
+    every phase inside the span ``shard_round``."""
+    t = timing.tracer(timer)
+    with t("shard_round"):
+        return _round(state, bg, int(me), inbox, client, cfg, t)
+
+
+def _round(state, bg, me, inbox, client, cfg, t) -> RoundOut:
     rows_np = np.concatenate([_host_rows(inbox), _host_rows(client)])
     n_rows = rows_np.shape[0]
     dev = state.pool.key.device
@@ -181,7 +184,7 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
     with t("round_prepass"):
         pre = BA.round_prepass(state, rows, rows_np, me, cfg,
                                run_find=cfg.find_fastpath,
-                               run_mut=cfg.mut_fastpath, timer=timer)
+                               run_mut=cfg.mut_fastpath, timer=t)
     state = pre.state
     # migration rounds get their own pre-pass (any move row makes the round
     # non-benign for the client one): eligible MSG_MOVE_ITEMS runs are
@@ -216,11 +219,11 @@ def shard_round(state: ShardState, bg: B.BgTable, me: int, inbox, client,
     ent_hits.index_add_(0, entc.long(), count_here.to(torch.int32))
 
     # one transfer brings the pre-pass verdicts to the host
-    pv = torch.cat([pre.find_elig.to(torch.int32),
-                    pre.mut_elig.to(torch.int32),
-                    torch.where(rep_elig, rep_res, pre.res),
-                    rep_elig.to(torch.int32),
-                    pre.blk_hits.reshape(1)]).cpu().numpy()
+    pv = to_numpy(torch.cat([pre.find_elig.to(torch.int32),
+                             pre.mut_elig.to(torch.int32),
+                             torch.where(rep_elig, rep_res, pre.res),
+                             rep_elig.to(torch.int32),
+                             pre.blk_hits.reshape(1)]))
     find_elig = pv[:n_rows].astype(bool)
     mut_elig = pv[n_rows:2 * n_rows].astype(bool)
     res_all = pv[2 * n_rows:3 * n_rows]

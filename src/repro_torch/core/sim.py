@@ -27,13 +27,12 @@ are host commands that claim a slot of a shard's table (``split``,
 """
 from __future__ import annotations
 
-import contextlib
 import tempfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
+from .. import timing
 from . import bg as B
 from . import messages as M
 from . import range_scan as RS
@@ -42,6 +41,7 @@ from . import registry as reg_ops
 from . import replica as R
 from .durability import Durability, validate_crash_plans, wal
 from .durability.recovery import completions_array
+from .host import to_numpy as _np
 from .membership import (Membership, epoch_broadcast, moves_targeting,
                          owned_entry_count)
 from .net import Nemesis, NemesisConfig, Transport, trace_entry
@@ -112,11 +112,6 @@ def make_op_row(shard: int, kind: int, key: int, val: int,
 
 
 # ------------------------------------------------------- state inspection
-
-def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
-        else np.asarray(t)
-
 
 def host_view(state: ShardState) -> dict:
     """The columns the chain and registry walkers read, as numpy arrays
@@ -544,8 +539,7 @@ class Cluster:
             outs.append(shard_round(self.states[s], self.bgs[s], s, inbox,
                                     _NO_ROWS, cfg, timer=self.timer))
 
-        timer = self.timer or (lambda name: contextlib.nullcontext())
-        with timer("host_routing"):
+        with timing.tracer(self.timer)("host_routing"):
             ndone = self._harvest(outs, down)
         self.round_no += 1
         self.stats["rounds"] += 1

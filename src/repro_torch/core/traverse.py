@@ -3,7 +3,8 @@
 ``probe_batch`` is the read-only lock-step walk of the batched pre-passes,
 on the device: one vectorized step advances every lane. Its early exit
 (stop once no lane is still walking) is read on the host, which costs one
-device sync per step; ``probe_batch.steps`` counts the steps taken.
+device sync per step; ``probe_batch.steps`` counts the steps taken, and so
+does the ``prepass_steps`` counter of the open span (``timing.count``).
 
 ``search`` is the serial pass's exact traversal with Harris delinking, on
 the host working copy (``core/host.py``).
@@ -21,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import timing
 from . import refs
 from .types import DiLiConfig, ShardState, SH_KEY, ST_KEY
 
@@ -92,6 +94,9 @@ def probe_batch(state: ShardState, head_idx, key, me, bound: int,
         curr = torch.where(advance, curr_nxt, curr)
         i += 1
     probe_batch.steps += i
+    timing.count("prepass_steps", i)
+    reads = i + (i < bound)
+    timing.crossed(done, reads, nbytes=reads)
     return ProbeOut(ok=ok & done, present=present, left=prev, right=right)
 
 
