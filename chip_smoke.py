@@ -16,7 +16,11 @@ which makes the script exit non-zero when it fails:
                on the edge cases of the tests (the grid ``HS_EDGE_*`` of
                ``hs_edge_case``: ties, pads, the full-block-all-less row,
                sentinel queries, both row sweeps) and repeatably;
-               ``paged_attention`` at
+               ``refresh_walk`` bit for bit (keys, idx, valid, steps per
+               row) on ``refresh_case``'s crafted shard states, each of
+               ``RW_RULES`` alone and all together, and at the main
+               path's shape (``RW_CELL``), one launch a call; fig3a
+               checks one launch a round; ``paged_attention`` at
                the reference's three test shapes in f32 and bf16 (atol
                2e-5 / 2e-2, rtol 2e-2) and the serving shape, plus the
                padding-page invariance, the edge cases of the tests
@@ -443,7 +447,7 @@ CORE_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 
 # the kernels of the port's paths, each built from csrc/<name>.cu
-KERNELS = ("hybrid_search", "paged_attention")
+KERNELS = ("hybrid_search", "refresh_walk", "paged_attention")
 
 # hybrid_search's edge grid (hs_edge_case), also the gpu tests': registry
 # sizes around the 32-ary search's steps, row widths on both sweeps (C %
@@ -451,6 +455,20 @@ KERNELS = ("hybrid_search", "paged_attention")
 HS_EDGE_M = (1, 2, 31, 32, 33, 1025, 16384)
 HS_EDGE_C = (1, 3, 31, 32, 33, 160, 161)
 HS_EDGE_B = (1, 31, 128, 4096)
+
+# refresh_walk's ending rules (refresh_case): how a dirty row's walk ends.
+# The rules of RW_VALID leave the row valid ("subtail_moving": the
+# registered SubTail reached, itself moving, validates as in the
+# reference). Also the gpu tests' and the CPU differential test's cases
+RW_RULES = ("subtail", "tombstones", "subhead", "subtail_moving", "foreign",
+            "null", "moving", "switched", "marked_subtail", "other_subtail",
+            "overflow", "max_scan")
+RW_VALID = ("subtail", "tombstones", "subhead", "subtail_moving")
+# the main path's shape (dili_1srv: registry, block, pool and counter
+# sizes; ~190 dirty rows a round), with a bound on the walk that the
+# plain version, one host read a step, reaches in well under a second
+RW_CELL = dict(m=16384, c=160, n=1 << 21, nc=16384, max_scan=256,
+               dirty=190 / 14336)
 
 # the serving phase (benchmarks/run.py::serving at the full width of
 # Qwen2-0.5B, two DiLi shards): live requests, their prompt lengths and
@@ -1395,6 +1413,189 @@ def hs_edge_case(m: int, c: int, b: int, seed: int = 0):
             q.astype(np.int32))
 
 
+def refresh_case(m: int, c: int, n: int, nc: int, max_scan: int,
+                 rules=RW_RULES, dirty: float = 0.5, me: int = 1,
+                 seed: int = 0):
+    """``refresh_walk`` inputs at the edges of its rules, as numpy: a dict
+    keyed as the wrapper's parameters (``me`` and ``max_scan`` included)
+    and a dict of what each row must give (``valid``, ``steps``, and the
+    ``rule`` its walk ends by, "" where it does not walk).
+
+    Of the ``size`` (7/8 of M) registry rows in use, a share ``dirty``
+    walks a chain built to end by ``rules`` in turn, at a random depth,
+    through live keys, tombstones (marked ``nxt``) and in-chain SubHeads.
+    The rest are clean (valid; kept as they are) or fail the gate (a NULL
+    or foreign SubHead, a switched counter slot, a moving head; their valid
+    bit cleared). Rows past ``size``, the old blocks and every pool slot
+    outside a chain hold random words. Chains lie at random pool slots;
+    some counter slots lie out of range (clamped); refs carry mark bits
+    where the pointer's source node is marked, and some SubHead refs carry
+    one anyway."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    null = (1 << 22) - 1
+    sh_key, st_key = -(2**31), 2**31 - 1
+    other = (me + 1 + int(rng.integers(0, 500))) % 512
+
+    def ref(sid, idx, mark=False):
+        return (sid << 22) | idx | ((1 << 31) if mark else 0)
+
+    key = rng.integers(-1000, 1000, n)
+    nxt = rng.integers(0, 2**32, n, dtype=np.int64)
+    ctr = rng.integers(0, nc, n)
+    newloc = np.full(n, null, np.int64)
+    stct = rng.integers(0, 1000, nc)
+    bad_slots = rng.choice(np.arange(1, nc - 1), max(1, (nc - 2) // 8),
+                           replace=False) if nc > 2 else np.zeros(0, int)
+    stct[bad_slots] = -rng.integers(1, 1000, bad_slots.size)
+    stct[bad_slots[:1]] = -(2**31)
+    good_slots = np.setdiff1d(np.arange(nc), bad_slots)
+    slots_in = iter(rng.permutation(n).tolist())
+    size = m - m // 8
+    subhead = rng.integers(0, 2**32, m, dtype=np.int64)
+    subtail = rng.integers(0, 2**32, m, dtype=np.int64)
+    reg_ctr = rng.integers(-3, nc + 3, m)
+    keys = rng.integers(-(2**31), 2**31, (m, c), dtype=np.int64)
+    idx = rng.integers(0, n, (m, c))
+    valid = rng.random(m) < 0.5
+    want_valid = np.zeros(m, bool)
+    want_steps = np.zeros(m, np.int64)
+    rule_of = [""] * m
+    walks = 0
+
+    def good_slot():
+        # now and then out of range: clamped onto slot 0 or NC - 1, both good
+        if rng.random() < 0.1:
+            return int(rng.choice([-7, nc + 7]))
+        return int(rng.choice(good_slots))
+
+    def node(k, mark=False):
+        i = next(slots_in)
+        key[i] = k
+        newloc[i] = null
+        ctr[i] = good_slot()
+        return i, mark
+
+    def filler(n_live, n_tomb, n_sh=0):
+        """Live keys, tombstones and in-chain SubHeads in random order."""
+        kinds = ["live"] * n_live + ["tomb"] * n_tomb + ["sh"] * n_sh
+        rng.shuffle(kinds)
+        out = []
+        for kd in kinds:
+            if kd == "live":
+                out.append(node(int(rng.integers(-10**6, 10**6))))
+            elif kd == "tomb":
+                out.append(node(int(rng.integers(-10**6, 10**6)), True))
+            else:
+                out.append(node(sh_key, rng.random() < 0.5))
+        return out
+
+    def prefix():
+        """A chain start that ends by nothing: at most C live keys, room
+        for one more step under the bound."""
+        total = int(rng.integers(0, max(max_scan - 1, 1)))
+        n_live = int(rng.integers(0, min(c, total) + 1))
+        return filler(n_live, total - n_live)
+
+    for e in range(size):
+        u = rng.random()
+        if u >= dirty:
+            h, _ = node(sh_key)
+            subhead[e] = ref(me, h, rng.random() < 0.25)
+            reg_ctr[e] = good_slot()
+            if u < dirty + (1 - dirty) / 2:             # clean
+                valid[e] = want_valid[e] = True
+                continue
+            gate = int(rng.integers(0, 4))              # fails the gate
+            if gate == 0:
+                subhead[e] = ref(0, null, rng.random() < 0.5)
+            elif gate == 1:
+                subhead[e] = ref(other, h)
+            elif gate == 2:
+                reg_ctr[e] = int(rng.choice(bad_slots))
+            else:
+                newloc[h] = ref(other, int(rng.integers(0, n)))
+            continue
+        rule = rule_of[e] = rules[walks % len(rules)]
+        walks += 1
+        valid[e] = False
+        h, _ = node(sh_key)
+        subhead[e] = ref(me, h, rng.random() < 0.25)
+        reg_ctr[e] = good_slot()
+        st, _ = node(st_key)
+        subtail[e] = ref(me, st, rng.random() < 0.25)
+        # chain: the nodes the walk visits, the last one where it ends;
+        # link: how the last pointer reaches it ("ok", "foreign", "null")
+        link = "ok"
+        if rule in ("subtail", "subtail_moving"):
+            chain = filler(int(rng.integers(0, min(c, max_scan - 1) + 1)), 0)
+            chain.append((st, False))
+            if rule == "subtail_moving":
+                newloc[st] = ref(other, int(rng.integers(0, n)))
+        elif rule == "tombstones":
+            n_live = int(rng.integers(0, min(c, max_scan - 2) + 1))
+            n_tomb = int(rng.integers(1, max_scan - n_live))
+            chain = filler(n_live, n_tomb) + [(st, False)]
+        elif rule == "subhead":
+            n_live = int(rng.integers(0, min(c, max_scan - 2) + 1))
+            n_sh = int(rng.integers(1, min(3, max_scan - 1 - n_live) + 1))
+            chain = filler(n_live, 0, n_sh) + [(st, False)]
+        elif rule == "overflow":
+            n_tomb = int(rng.integers(0, max_scan - c))
+            chain = filler(c, n_tomb) + filler(1, 0)
+        elif rule == "max_scan":
+            n_live = int(rng.integers(0, c + 1))
+            chain = filler(n_live, max_scan + 1 - n_live) + [(st, False)]
+        else:
+            chain = prefix()
+            if rule == "foreign":
+                link = "foreign"
+                chain += filler(1, 0)
+            elif rule == "null":
+                link = "null"
+                chain.append((n - 1, False))
+            elif rule == "moving":
+                end, _ = node(int(rng.integers(-10**6, 10**6)))
+                newloc[end] = ref(me, int(rng.integers(0, n)))
+                chain.append((end, False))
+            elif rule == "switched":
+                end, _ = node(int(rng.integers(-10**6, 10**6)))
+                ctr[end] = int(rng.choice(bad_slots))
+                chain.append((end, False))
+            elif rule == "marked_subtail":
+                chain.append((st, True))
+            else:                                       # other_subtail
+                end, _ = node(st_key)
+                chain.append((end, False))
+        # nxt[node] points at its successor and carries the node's mark
+        prev, prev_mark = h, False
+        for j, (i, mark) in enumerate(chain):
+            last = j == len(chain) - 1
+            if last and link == "foreign":
+                nxt[prev] = ref(other, i, prev_mark)
+            elif last and link == "null":
+                nxt[prev] = ref(0, null, prev_mark)
+            else:
+                nxt[prev] = ref(me, i, prev_mark)
+            prev, prev_mark = i, mark
+        if link != "null":                  # the last node's own mark
+            nxt[prev] = ref(me, int(rng.integers(0, n)), prev_mark)
+        want_steps[e] = min(len(chain), max_scan)
+        want_valid[e] = rule in RW_VALID
+
+    def bits(a):
+        return np.asarray(a, np.int64).astype(np.uint32).view(np.int32)
+
+    args = dict(key=key.astype(np.int32), nxt=bits(nxt),
+                ctr=ctr.astype(np.int32), newloc=bits(newloc),
+                stct=stct.astype(np.int32), subhead=bits(subhead),
+                subtail=bits(subtail), reg_ctr=reg_ctr.astype(np.int32),
+                size=np.asarray(size, np.int32), keys=keys.astype(np.int32),
+                idx=idx.astype(np.int32), valid=valid, me=me,
+                max_scan=max_scan)
+    return args, dict(valid=want_valid, steps=want_steps, rule=rule_of)
+
+
 def phase_kernels() -> dict:
     """``hybrid_search`` against its plain twin on the card, bit for bit:
     the tests' hand-made cases, the edge grid (``hs_edge_case`` at every
@@ -1514,6 +1715,110 @@ def phase_kernels() -> dict:
             f"{call_ms * 1e3:.2f} us; plain version (reference only) "
             f"{plain_ms * 1e3:.3f} us on the device, "
             f"{plain_call_ms * 1e3:.2f} us per call; bit-identical")
+    return rec
+
+
+def phase_refresh_kernel() -> dict:
+    """``refresh_walk`` against its plain twin on the card, bit for bit:
+    every ending rule of ``refresh_case`` alone and all together at a small
+    shape (three seeds each), and the main path's shape (``RW_CELL``);
+    each call one launch, its rows ending as built; a call runs the kernel
+    and no other device work. Then at the main path's shape: the device
+    time, the wrapper's host time, the plain version's time, and the least
+    time, the longest walk's steps times one dependent load's latency,
+    taken as the kernel's time a step on long chains (``max_scan`` rows
+    at 32,768 steps) in a pool of the same size. Returns the record."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops as K
+
+    dev = torch.device("cuda")
+
+    def on_card(args):
+        return {k: torch.from_numpy(np.array(v)).to(dev)
+                if isinstance(v, np.ndarray) else v for k, v in args.items()}
+
+    def vs_twin(args, want, what):
+        n0 = K.refresh_walk.launches
+        got = K.refresh_walk(**args)
+        check(K.refresh_walk.launches == n0 + 1,
+              f"refresh_walk {what}: {K.refresh_walk.launches - n0} "
+              f"launches counted for one call")
+        ref = K.refresh_walk_ref(**args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("keys", "idx", "valid", "steps"), got, ref):
+            check(torch.equal(a, b), f"refresh_walk {what}: {name} differs "
+                                     f"from the plain version")
+        check(np.array_equal(got[2].cpu().numpy(), want["valid"])
+              and np.array_equal(got[3].cpu().numpy(), want["steps"]),
+              f"refresh_walk {what}: rows did not end as built")
+        return got
+
+    small = dict(m=48, c=8, n=2048, nc=16, max_scan=40)
+    for seed in range(3):
+        for rules in [(r,) for r in RW_RULES] + [RW_RULES]:
+            args, want = refresh_case(**small, rules=rules, seed=seed)
+            vs_twin(on_card(args), want, f"{'/'.join(rules)} seed {seed}")
+    args, want = refresh_case(**RW_CELL, seed=5)
+    cell = on_card(args)
+    vs_twin(cell, want, "main path shape")
+    dirty = int((want["steps"] > 0).sum())
+    longest = int(want["steps"].max())
+    log(f"[kernels] refresh_walk: bit-identical to the twin (keys, idx, "
+        f"valid, steps per row) for each of {len(RW_RULES)} ending rules "
+        f"alone and all together, 3 seeds each, and at the main path's "
+        f"shape (M={RW_CELL['m']}, C={RW_CELL['c']}, pool {RW_CELL['n']}: "
+        f"{dirty} dirty rows, the longest walk {longest} steps)")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            K.refresh_walk(**cell)
+        torch.cuda.synchronize()
+    ev = _device_events(prof)
+    check(all("refresh_walk_kernel" in e.key for e in ev),
+          f"refresh_walk: a call ran other device work: "
+          f"{[e.key for e in ev]}")
+    ms = device_ms(lambda: K.refresh_walk(**cell))
+    call_ms = time_cuda(lambda: K.refresh_walk(**cell))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        K.refresh_walk(**cell)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 200
+    torch.cuda.synchronize()
+    plain_ms = device_ms(lambda: K.refresh_walk_ref(**cell), iters=2)
+    plain_call_ms = time_cuda(lambda: K.refresh_walk_ref(**cell), iters=2,
+                              reps=3)
+
+    # one dependent load's latency: chains of 32,768 steps, one load each
+    # on the critical path, in a pool of the main path's size
+    chase_steps = 1 << 15
+    args, want = refresh_case(8, RW_CELL["c"], RW_CELL["n"], 16, chase_steps,
+                              rules=("max_scan",), dirty=1.0, seed=3)
+    chase = on_card(args)
+    check(int(want["steps"].max()) == chase_steps, "refresh_walk: the chase "
+          "case does not walk to its bound")
+    step_ms = device_ms(lambda: K.refresh_walk(**chase), iters=5) \
+        / chase_steps
+    m, c = RW_CELL["m"], RW_CELL["c"]
+    t_bytes = 4 * m * c * 4 / HBM_BYTES_PER_S * 1e3   # keys, idx in and out
+    t_chain = longest * step_ms
+    rec = dict(ms=ms, call_ms=call_ms, host_ms=host_ms, plain_ms=plain_ms,
+               plain_call_ms=plain_call_ms, step_ms=step_ms,
+               bound_ms=max(t_chain, t_bytes),
+               bound_by="dependent loads" if t_chain >= t_bytes
+               else "bytes", longest=longest, dirty=dirty,
+               shape=[m, c, RW_CELL["n"]], max_abs_err=0)
+    log(f"[kernels] refresh_walk M={m} C={c} pool {RW_CELL['n']}: kernel "
+        f"{ms * 1e3:.3f} us on the device per call (the kernel alone), "
+        f"bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}: "
+        f"{longest} steps x {step_ms * 1e6:.1f} ns a dependent load, "
+        f"measured on {chase_steps}-step chains; bytes "
+        f"{t_bytes * 1e3:.3f} us); the wrapper's host side "
+        f"{host_ms * 1e3:.2f} us a call, back to back {call_ms * 1e3:.2f} "
+        f"us; plain version (reference only) {plain_ms * 1e3:.1f} us on "
+        f"the device, {plain_call_ms * 1e3:.1f} us per call")
     return rec
 
 
@@ -1733,6 +2038,7 @@ def _run_fig3a(timer, read_pct: int = 50):
     backend = LocalBackend(bench_cfg(), device="cuda", timer=timer)
     bal = Balancer(backend)
     K.hybrid_search.launches = 0
+    K.refresh_walk.launches = 0
     probe_batch.steps = 0
     drive_backend(backend, load_kinds, load_keys, 64, balancer=bal)
     load_rounds = backend.stats["rounds"]
@@ -1747,6 +2053,7 @@ def _run_fig3a(timer, read_pct: int = 50):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = K.hybrid_search.launches
+    refresh_launches = K.refresh_walk.launches
     walk_steps = probe_batch.steps
 
     oracle = OracleList()
@@ -1769,9 +2076,14 @@ def _run_fig3a(timer, read_pct: int = 50):
     check(read_pct != 50 or walk_steps == FIG3A_WALK_STEPS < 10559,
           f"{what}: the pointer walk took {walk_steps} steps, not the "
           f"CPU's {FIG3A_WALK_STEPS}")
+    # one server with the block probe: one refresh launch a round
+    check(refresh_launches == st["rounds"],
+          f"{what}: refresh_walk launched {refresh_launches} times over "
+          f"{st['rounds']} rounds")
     mix_rounds = st["rounds"] - settle_rounds
     return dict(ops_per_s=len(kinds) / dt, seconds=dt,
-                mix_rounds=mix_rounds, launches=launches, counts=counts,
+                mix_rounds=mix_rounds, launches=launches,
+                refresh_launches=refresh_launches, counts=counts,
                 walk_steps=walk_steps, mix_walk_steps=walk_steps - mix_steps0,
                 backend=backend, kinds=kinds, keys=keys)
 
@@ -3573,6 +3885,7 @@ def main() -> None:
     dry_dir = tempfile.TemporaryDirectory()
     dry = start_dryrun(dry_dir.name)
     krec = phase_kernels()
+    rrec = phase_refresh_kernel()
     from repro_torch.configs import get_config
     serve_lens = [len(p) for p in
                   serve_requests(get_config("qwen2_0_5b").vocab)]
@@ -3647,6 +3960,18 @@ def main() -> None:
         launches_zipf_off=zipf["runs"]["off"]["launches"],
         walk_steps_fig3a=f3["plain"]["walk_steps"],
         walk_steps_scale=scale["walk_steps"]), dict(
+        name="refresh_walk", route="cuda",
+        source="src/repro_torch/kernels/csrc/refresh_walk.cu",
+        replaces=None, launches=f3["plain"]["refresh_launches"],
+        launches_per_round=f3["plain"]["refresh_launches"]
+        / f3["plain"]["counts"]["rounds"],
+        max_abs_err=rrec["max_abs_err"], ms=rrec["ms"],
+        plain_ms=rrec["plain_ms"], bound_ms=rrec["bound_ms"],
+        bound_by=rrec["bound_by"], library_ms=None, shape=rrec["shape"],
+        call_ms=rrec["call_ms"], host_ms=rrec["host_ms"],
+        plain_call_ms=rrec["plain_call_ms"],
+        dependent_load_ms=rrec["step_ms"], longest_walk=rrec["longest"],
+        dirty_rows=rrec["dirty"]), dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:29",

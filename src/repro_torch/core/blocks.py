@@ -37,79 +37,24 @@ def invalidate_entry(blk: Blocks, e, when=True) -> Blocks:
 def refresh_blocks(state: ShardState, me, cfg: DiLiConfig) -> ShardState:
     """Rebuild every dirty, owned, live registry entry's packed block.
 
-    One lock-step walk over all M entries with a per-row write cursor:
+    Each dirty row walks its chain from its SubHead with a write cursor:
     live keys land at their cursor column, marked tombstones and in-chain
-    SubHeads are stepped over. The walk ends when no row is still
-    collecting, read on the host once per step.
+    SubHeads are stepped over (``kernels.ops.refresh_walk``: on the card
+    one launch of ``csrc/refresh_walk.cu`` that the host never waits for;
+    on the CPU the reference's lock-step loop). The longest walk's steps
+    (``refresh_steps``) cost a read of the card, so they are read only
+    while a ``timing.PhaseTimer`` span is open.
     """
-    pool = state.pool
-    reg = state.registry
-    blk = state.blk
-    m = reg.keymin.shape[0]
-    c = cfg.block_cap
-    n = pool.key.shape[0]
-    nc = state.stct.shape[0]
-    dev = pool.key.device
-
-    eidx = torch.arange(m, dtype=torch.int32, device=dev)
-    sh = reg.subhead
-    head_idx = refs.ref_idx(sh).clamp(0, n - 1)
-    slot = reg.ctr.clamp(0, nc - 1)
-    live = (eidx < reg.size) & ~refs.is_null(sh) & \
-        (refs.ref_sid(sh) == me) & (state.stct[slot] >= 0) & \
-        refs.is_null(pool.newloc[head_idx])
-    need = live & ~blk.valid
-
-    # one spare column takes the writes the reference drops (col == C), so
-    # the per-step scatter needs no host-side mask
-    keys = torch.full((m, c + 1), ST_KEY, dtype=torch.int32, device=dev)
-    idxs = torch.zeros((m, c + 1), dtype=torch.int32, device=dev)
-    keys[:, :c] = torch.where(need[:, None], ST_KEY, blk.keys)
-    idxs[:, :c] = torch.where(need[:, None], 0, blk.idx)
-    st_ref = refs.unmarked(reg.subtail)
-    rows_ = torch.arange(m, dtype=torch.int64, device=dev)
-    col = torch.zeros((m,), dtype=torch.int32, device=dev)
-    cur = pool.nxt[head_idx]
-    collecting = need
-    good = torch.zeros((m,), dtype=torch.bool, device=dev)
-
-    # chain steps, not live keys: tombstones stretch the walk past C
-    i = 0
-    while i < cfg.max_scan and bool(collecting.any()):
-        ci = refs.ref_idx(cur).clamp(0, n - 1)
-        local = refs.ref_sid(cur) == me
-        word = pool.nxt[ci]
-        marked = refs.ref_mark(word)
-        moving = ~refs.is_null(pool.newloc[ci])
-        switched = state.stct[pool.ctr[ci].clamp(0, nc - 1)] < 0
-        k = pool.key[ci]
-        at_st = k == ST_KEY
-        # the terminating ST must be the *registered* subtail, unmarked
-        reach_ok = at_st & ~marked & (refs.unmarked(cur) == st_ref)
-        # marked non-ST nodes and in-chain SubHeads are logically absent
-        hop = (k == SH_KEY) | (marked & ~at_st)
-        want_write = ~at_st & ~hop
-        bad = ~local | refs.is_null(cur) | moving | switched \
-            | (at_st & ~reach_ok) | (want_write & (col >= c))
-        write = collecting & ~bad & want_write
-
-        at_col = torch.where(write, col, c).long()
-        keys[rows_, at_col] = k
-        idxs[rows_, at_col] = ci
-        good = good | (collecting & reach_ok)
-        collecting = collecting & ~bad & ~reach_ok
-        col = col + write.to(torch.int32)
-        cur = torch.where(collecting, word, cur)
-        i += 1
-    # the loop's test is read on the host each time it runs, a byte a read
-    reads = i + (i < cfg.max_scan)
-    timing.count("refresh_steps", i)
-    timing.crossed(collecting, reads, nbytes=reads)
-    # rows still collecting at the bound never reached their subtail
-    valid = (blk.valid | good) & live
-    return state._replace(blk=Blocks(keys=keys[:, :c].contiguous(),
-                                     idx=idxs[:, :c].contiguous(),
-                                     valid=valid))
+    pool, reg, blk = state.pool, state.registry, state.blk
+    keys, idx, valid, steps = K.refresh_walk(
+        pool.key, pool.nxt, pool.ctr, pool.newloc, state.stct, reg.subhead,
+        reg.subtail, reg.ctr, reg.size, blk.keys, blk.idx, blk.valid, me,
+        cfg.max_scan)
+    if timing.counting():
+        longest = steps.max()
+        timing.crossed(longest)
+        timing.count("refresh_steps", int(longest))
+    return state._replace(blk=Blocks(keys=keys, idx=idx, valid=valid))
 
 
 def probe_blocks(state: ShardState, entry, sh_ref, q, me, cfg: DiLiConfig):

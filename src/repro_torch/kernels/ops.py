@@ -4,8 +4,8 @@ A CUDA tensor goes to the hand-written Hopper kernel; a CPU tensor goes to
 the plain PyTorch version in ``ref.py``. There is no fallback between the
 two: a CUDA launch that fails raises. Each wrapper counts the launches of
 its kernel in a plain integer attribute (``hybrid_search.launches``,
-``paged_attention.launches``), so a run can show that its main path went
-through the kernel.
+``refresh_walk.launches``, ``paged_attention.launches``), so a run can show
+that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -73,6 +73,81 @@ def hybrid_search_ref(keymin, blocks, queries):
     any device."""
     slot, found = ref_ops.hybrid_search_ref(keymin, blocks, queries)
     return slot, found & (queries != _INT32_MAX)
+
+
+# ---------------------------------------------------------- refresh walk
+
+_INT32_RANGE = range(-2**31, 2**31)
+
+
+def _check_refresh(tensors: dict, me, max_scan) -> None:
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"refresh_walk: {name} must be a tensor")
+    dev = tensors["key"].device
+    for name, t in tensors.items():
+        want = torch.bool if name == "valid" else _I32
+        if t.dtype is not want:
+            raise TypeError(f"refresh_walk: {name} must be {want}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"refresh_walk: {name} must be contiguous")
+        if t.device != dev:
+            raise ValueError("refresh_walk: inputs on different devices "
+                             f"({t.device} vs {dev})")
+    keys, key = tensors["keys"], tensors["key"]
+    if keys.ndim != 2 or 0 in keys.shape:
+        raise ValueError(f"refresh_walk: keys must be a non-empty [M, C], "
+                         f"got shape {tuple(keys.shape)}")
+    if key.ndim != 1 or tensors["stct"].ndim != 1 or key.numel() == 0 \
+            or tensors["stct"].numel() == 0:
+        raise ValueError("refresh_walk: key and stct must be non-empty 1-D")
+    m, c = keys.shape
+    n = tuple(key.shape)
+    shapes = dict(nxt=n, ctr=n, newloc=n, subhead=(m,), subtail=(m,),
+                  reg_ctr=(m,), size=(), idx=(m, c), valid=(m,))
+    for name, shape in shapes.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"refresh_walk: {name} has shape "
+                             f"{tuple(tensors[name].shape)}, not {shape}")
+    for name, v in (("me", me), ("max_scan", max_scan)):
+        if not isinstance(v, int) or v not in _INT32_RANGE:
+            raise ValueError(f"refresh_walk: {name} must be an int32 "
+                             f"integer, got {v!r}")
+
+
+def refresh_walk(key, nxt, ctr, newloc, stct, subhead, subtail, reg_ctr,
+                 size, keys, idx, valid, me: int, max_scan: int):
+    """Rebuild the packed-block mirror's dirty rows
+    (``core/blocks.py::refresh_blocks``).
+
+    Pool columns ``key``, ``nxt``, ``ctr``, ``newloc`` int32[N]; ``stct``
+    int32[NC]; registry columns ``subhead``, ``subtail``, ``reg_ctr``
+    int32[M] and ``size`` int32[]; the blocks ``keys``, ``idx`` int32[M, C]
+    and ``valid`` bool[M]; ``me`` the shard, ``max_scan`` the walk's bound
+    in steps. Every live row that is not valid walks its chain from its
+    SubHead; the rest keep their rows. Returns fresh ``keys``, ``idx``,
+    ``valid`` and ``steps`` int32[M], the steps each row walked (0 where
+    it did not), so ``steps.max()`` is the longest walk. The inputs are
+    not written. On the card: one launch, nothing read by the host.
+    """
+    args = dict(key=key, nxt=nxt, ctr=ctr, newloc=newloc, stct=stct,
+                subhead=subhead, subtail=subtail, reg_ctr=reg_ctr, size=size,
+                keys=keys, idx=idx, valid=valid)
+    _check_refresh(args, me, max_scan)
+    dev_type = key.device.type
+    if dev_type == "cuda":
+        from . import refresh_walk as kernel
+        out = kernel.launch(**args, me=me, max_scan=max_scan)
+        refresh_walk.launches += 1
+        return out
+    if dev_type == "cpu":
+        return refresh_walk_ref(**args, me=me, max_scan=max_scan)
+    raise ValueError(f"refresh_walk: no kernel for device {key.device}")
+
+
+refresh_walk.launches = 0
+refresh_walk_ref = ref_ops.refresh_walk_ref
 
 
 # ------------------------------------------------------- paged attention

@@ -10,11 +10,13 @@ are the instrumentation's cost, paid only when a timer is given.
 
 ``count(name, n)`` adds to a counter of the innermost span open on a
 ``PhaseTimer`` (``PhaseTimer.counts[span, name]``); with none open it
-returns at once, so the program counts without holding the timer. The
-counters the round keeps: ``refresh_steps`` (``blocks.refresh_blocks``'s
-walk), ``prepass_steps`` (``traverse.probe_batch``'s walk), and
-``host_reads`` / ``to_host_bytes``, every read of a card's tensor by the
-host (``crossed``), each of which waits for the card.
+returns at once, so the program counts without holding the timer. A count
+that costs a read of the card is taken only where ``counting()`` says a
+span is open. The counters the round keeps: ``refresh_steps``
+(``blocks.refresh_blocks``'s longest walk), ``prepass_steps``
+(``traverse.probe_batch``'s walk), and ``host_reads`` / ``to_host_bytes``,
+every read of a card's tensor by the host (``crossed``), each of which
+waits for the card.
 
 ``tracer(timer)`` is ``timer``, or where it is None the no-op tracer,
 whose spans do nothing.
@@ -83,6 +85,11 @@ class PhaseTimer:
 def latest() -> Optional[PhaseTimer]:
     """The newest ``PhaseTimer`` made in this process, or None."""
     return _LATEST
+
+
+def counting() -> bool:
+    """Whether a ``PhaseTimer`` span is open, so that ``count`` records."""
+    return bool(_OPEN)
 
 
 def count(name: str, n: int = 1) -> None:
